@@ -1,0 +1,339 @@
+"""Syncword acquisition: overlap-save correlation + CFAR detection.
+
+Port of the ``fft`` backend of ``gr4_packet_modem_tpu/ops/acquire.py``. The
+correlation against the ``2*freq_bins+1`` frequency-shifted syncword
+replicas runs as batched overlap-save FFTs on ``torch.fft``; detection is
+the chunked peak detector (event-identical to the reference's running-best
+state machine) and the candidate estimates are the closed-form math of
+syncword_detection.hpp:56-115, vectorised over candidates. Every function
+takes a bank ``[C, T]`` (a single channel is ``[T]``): acquisition is
+batched over channels.
+
+The noise window of each candidate is fetched by the K2 region-fetch kernel
+(``ops/fetch_cuda.py``). The fused correlator (the JAX package's ``fused``
+backend, a Pallas kernel) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+
+import numpy as np
+import torch
+from torch import nn
+
+from gr4_packet_modem_tpu.utils import constants as C
+from gr4_packet_modem_tpu.utils.firdes import rx_rrc_taps
+
+from .costas import PI, TWO_PI
+from .fetch_cuda import fetch_regions
+
+__all__ = [
+    "AcquisitionConfig", "Detections", "SyncwordAcquirer",
+    "modulated_syncword", "acquirer_tables", "chunked_peak_detect",
+]
+
+
+def modulated_syncword(sps: int = 4) -> tuple[np.ndarray, float]:
+    """RRC-modulated BPSK syncword replica and its self-correlation
+    (syncword_detection.hpp:154-164)."""
+    taps, _ = rx_rrc_taps(sps)
+    sync = np.asarray(C.SYNCWORD)
+    const = np.asarray(C.BPSK_CONSTELLATION)
+    n = (sync.size - 1) * sps + taps.size
+    out = np.zeros(n, dtype=np.complex64)
+    for j, b in enumerate(sync):
+        out[j * sps : j * sps + taps.size] += const[b] * taps
+    self_corr = float(np.sum(np.abs(out) ** 2))
+    return out, self_corr
+
+
+@dataclass(frozen=True)
+class AcquisitionConfig:
+    samples_per_symbol: int = 4
+    fft_size: int = C.SYNC_FFT_SIZE
+    freq_bins: int = 4  # search bins [-freq_bins, +freq_bins]
+    time_threshold: int = C.SYNC_TIME_THRESHOLD
+    power_threshold: float = C.SYNC_POWER_THRESHOLD
+    max_detections: int = 64  # static bound per processed block
+    # "fft" (overlap-save, as the reference) is the only backend ported;
+    # "auto" resolves to it
+    backend: str = "auto"
+
+    def __post_init__(self):
+        if self.backend not in ("auto", "fft"):
+            raise ValueError(
+                f"acquisition backend {self.backend!r} is not ported "
+                '(the port runs "fft"; "auto" resolves to it)'
+            )
+
+
+@dataclass
+class Detections:
+    """Sparse detection set, sorted by sample index with invalid entries
+    last. Fields are ``[D]``, or ``[C, D]`` for a bank (then ``overflow``
+    is ``[C]``)."""
+
+    index: torch.Tensor      # int64 syncword start sample
+    valid: torch.Tensor      # bool
+    amplitude: torch.Tensor  # float32
+    phase: torch.Tensor      # float32
+    freq: torch.Tensor       # float32 rad/sample
+    freq_bin: torch.Tensor   # int64
+    time_est: torch.Tensor   # float32 in [-0.5, 0.5]
+    noise_power: torch.Tensor  # float32
+    esn0_db: torch.Tensor    # float32
+    overflow: torch.Tensor   # bool: more peaks than max_detections slots
+
+    def map(self, fn) -> "Detections":
+        """Apply ``fn`` to every field."""
+        return Detections(*(fn(getattr(self, f.name)) for f in fields(self)))
+
+
+def acquirer_tables(config: AcquisitionConfig) -> dict[str, np.ndarray]:
+    """The acquirer's constant tables, built as the JAX acquirer builds
+    them: ``replicas`` complex64 ``[nb, L]`` (frequency-shifted replicas,
+    bin spacing pi / L rad/sample), ``noise_filter`` float32 ``[33]`` (the
+    out-of-band high-pass of the noise estimate), ``noise_gain`` and
+    ``self_corr`` (float64 scalars)."""
+    from scipy import signal
+
+    replica, self_corr = modulated_syncword(config.samples_per_symbol)
+    sync_len = replica.size
+    bins = np.arange(-config.freq_bins, config.freq_bins + 1)
+    k = np.arange(sync_len)
+    shift = np.exp(1j * (bins[:, None] * np.pi / sync_len) * k[None, :])
+    hp = signal.remez(33, [0.0, 0.22, 0.3, 0.5], [0.0, 1.0], fs=1.0).astype(
+        np.float32
+    )
+    return {
+        "replicas": (replica[None, :] * shift).astype(np.complex64),
+        "noise_filter": hp,
+        "noise_gain": np.float64(np.sum(hp**2)),
+        "self_corr": np.float64(self_corr),
+    }
+
+
+def chunked_peak_detect(
+    best_pow: torch.Tensor, w: int, d: int, power_threshold: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Windowed peak detection + CFAR over ``best_pow`` ``[C, T]``.
+
+    Sample ``t`` is a detection event iff its power is >= everything in
+    the centred window ``[t-w, t+w]``, strictly > everything in
+    ``[t-w, t-1]`` (first index wins ties), both window halves exist
+    (``w <= t < T-w``), and at least half the window is below
+    ``power/power_threshold`` (the history-median CFAR proxy). The ``d``
+    slots go to the top-d passing events by power; ``overflow`` flags more
+    passing events than slots. Every event is its w-sized chunk's first
+    argmax, so the window tests run as offset-masked reductions over the
+    ``[C, nch, w]`` chunk view (acquire.py:579-699 of the JAX package).
+
+    Returns ``(top_pow [C, d], top_idx [C, d], overflow [C])`` with empty
+    slots marked by ``top_pow == -1``.
+    """
+    c, tlen = best_pow.shape
+    dev = best_pow.device
+    nch = max(tlen // w, 1)
+    pad_len = (nch + 1) * w - tlen
+    neg = -torch.inf
+    bp_pad = torch.cat([best_pow, best_pow.new_full((c, pad_len), neg)], dim=1)
+    chunks = bp_pad.view(c, nch + 1, w)
+    cur = chunks[:, :nch]
+    nxt = chunks[:, 1 : nch + 1]
+    prv = torch.cat([best_pow.new_full((c, 1, w), neg), chunks[:, : nch - 1]], dim=1)
+    b = cur.amax(dim=-1)  # candidate powers [C, nch]
+    o = cur.argmax(dim=-1)  # first maximum
+    ti = o + torch.arange(nch, device=dev) * w
+    off = torch.arange(w, device=dev)
+    o3 = o[..., None]
+    suff_prev = torch.where(off >= o3, prv, neg).amax(dim=-1)
+    pref_next = torch.where(off <= o3, nxt, neg).amax(dim=-1)
+    is_peak = (b > suff_prev) & (b >= pref_next)
+    pos_ok = (ti >= w) & (ti < tlen - w)
+    thr = (b / power_threshold)[..., None]
+    below = (
+        ((prv < thr) & (off >= o3)).sum(dim=-1)
+        + (cur < thr).sum(dim=-1)
+        + ((nxt < thr) & (off <= o3)).sum(dim=-1)
+    )
+    passing = is_peak & pos_ok & (b > 0) & (2 * below >= 2 * w + 1)
+    overflow = passing.sum(dim=-1) > d
+    score = torch.where(passing, b, -1.0)
+    if nch >= d:
+        top_pow, sel = torch.topk(score, d, dim=-1)
+        top_idx = ti.gather(1, sel)
+    else:  # degenerate tiny buffers: fewer chunks than slots
+        top_pow = torch.cat([score, score.new_full((c, d - nch), -1.0)], dim=1)
+        top_idx = torch.cat([ti, ti.new_zeros(c, d - nch)], dim=1)
+    return top_pow, top_idx, overflow
+
+
+class SyncwordAcquirer(nn.Module):
+    """Batched syncword acquisition; the constant tables are buffers."""
+
+    def __init__(self, config: AcquisitionConfig, device: str | torch.device):
+        super().__init__()
+        self.config = config
+        tables = acquirer_tables(config)
+        self.sync_len = tables["replicas"].shape[1]
+        self.num_bins = 2 * config.freq_bins + 1
+        n = config.fft_size
+        # the framing takes each frame's (sync_len-1)-sample lookahead from
+        # the next stride: it must fit inside one stride
+        if n < 2 * (self.sync_len - 1):
+            raise ValueError(
+                f"fft_size must be >= {2 * (self.sync_len - 1)} "
+                f"(2*(sync_len-1)) for the overlap-save framing"
+            )
+        self.stride = n - self.sync_len + 1
+        for name, value in tables.items():
+            self.register_buffer(name, torch.tensor(value, device=device))
+
+    # ------------------------------------------------------------ correlation
+
+    def _frames(self, x: torch.Tensor) -> torch.Tensor:
+        """Overlap-save frames ``[C, F, N]``: frame f = x[f*s : f*s+n] is a
+        body reshape plus the lookahead tail from a one-stride-shifted
+        reshape."""
+        n, s = self.config.fft_size, self.stride
+        c, t = x.shape
+        nf = (t - n) // s + 1
+        body = x[:, : nf * s].reshape(c, nf, s)
+        shifted = x[:, s:]
+        pad = max(0, s + nf * s - t)
+        if pad:
+            shifted = torch.cat([shifted, x.new_zeros(c, pad)], dim=1)
+        tail = shifted[:, : nf * s].reshape(c, nf, s)[:, :, : n - s]
+        return torch.cat([body, tail], dim=2)
+
+    def _replica_fft_conj(self) -> torch.Tensor:
+        """conj(FFT(zero-padded replicas)) ``[nb, N]``."""
+        rep = self.replicas.new_zeros(self.num_bins, self.config.fft_size)
+        rep[:, : self.sync_len] = self.replicas
+        return torch.fft.fft(rep, dim=-1).conj()
+
+    def _correlate_fft(self, x: torch.Tensor) -> torch.Tensor:
+        """Complex correlations ``[C, nb, T']`` (T' = frames * stride) of
+        ``x`` ``[C, T]`` with every replica, by overlap-save FFT."""
+        s = self.stride
+        frames = self._frames(x)
+        c, nf, _ = frames.shape
+        f = torch.fft.fft(frames, dim=-1)  # [C, F, N]
+        prod = f[:, :, None, :] * self._replica_fft_conj()[None, None]
+        corr = torch.fft.ifft(prod, dim=-1)[..., :s]  # [C, F, nb, S]
+        return corr.permute(0, 2, 1, 3).reshape(c, self.num_bins, nf * s)
+
+    # -------------------------------------------------------------- detection
+
+    def acquire(self, x: torch.Tensor, index0: int = 0) -> Detections:
+        """Detect syncwords in ``x`` complex64 ``[T]`` or ``[C, T]``.
+
+        Correlations cover syncword starts in ``[0, T - sync_len]``;
+        detection needs ``time_threshold`` margin on both sides. ``index0``
+        is added to the reported indices. Returns :class:`Detections` with
+        fields ``[D]`` (or ``[C, D]``)."""
+        single = x.ndim == 1
+        if single:
+            x = x[None]
+        cfg = self.config
+        w = cfg.time_threshold
+        nb = self.num_bins
+        c, t = x.shape
+        corr = self._correlate_fft(x)  # [C, nb, T']
+        power = corr.abs() ** 2
+        tlen = power.shape[-1]
+        best_pow = power.amax(dim=1)  # [C, T']
+        best_bin = power.argmax(dim=1)
+        top_pow, ti, overflow = chunked_peak_detect(
+            best_pow, w, cfg.max_detections, cfg.power_threshold
+        )
+        cand_valid = top_pow > 0
+        b = top_pow
+        # ---------------- parameter estimation at the candidates
+        bin_spacing = float(np.float32(np.pi / self.sync_len))
+        bi = best_bin.gather(1, ti)
+        flat_power = power.reshape(c, nb * tlen)
+        p_left = flat_power.gather(1, (bi - 1).clamp(min=0) * tlen + ti)
+        p_right = flat_power.gather(1, (bi + 1).clamp(max=nb - 1) * tlen + ti)
+        interior = (bi > 0) & (bi < nb - 1)
+        denom_f = 2.0 * (2.0 * b - (p_left + p_right))
+        quad = torch.clamp(
+            (p_right - p_left) / torch.where(denom_f == 0, 1.0, denom_f), -0.5, 0.5
+        )
+        delta_freq = torch.where(interior, quad * bin_spacing, 0.0)
+        freq = (bi - cfg.freq_bins).to(torch.float32) * bin_spacing + delta_freq
+        corr_pt = corr.reshape(c, nb * tlen).gather(1, bi * tlen + ti)
+        phase = torch.angle(corr_pt) - delta_freq * 0.5 * float(self.sync_len)
+        phase = torch.where(phase >= PI, phase - TWO_PI, phase)
+        phase = torch.where(phase < -PI, phase + TWO_PI, phase)
+        # power peak interpolation b + (c-a)^2 / (16 (b - (a+c)/2))
+        # (syncword_detection.hpp:82-84); 16 (b - (a+c)/2) == 4 * denom_f
+        p_interp = torch.where(
+            interior,
+            b + (p_right - p_left) ** 2
+            / torch.where(denom_f == 0, 1.0, 4.0 * denom_f),
+            b,
+        )
+        self_corr = self.self_corr.to(torch.float32)
+        amplitude = torch.sqrt(torch.clamp(p_interp, min=0.0)) / self_corr
+        # time interpolation from the neighbour samples' best-bin powers
+        pa = best_pow.gather(1, (ti - 1).clamp(min=0))
+        pc = best_pow.gather(1, (ti + 1).clamp(max=tlen - 1))
+        denom_t = 2.0 * (2.0 * b - (pa + pc))
+        time_est = torch.clamp(
+            (pc - pa) / torch.where(denom_t == 0, 1.0, denom_t), -0.5, 0.5
+        )
+        # noise power: mean power of the out-of-band (high-pass) component
+        # in the CFAR window around each candidate, scaled to full-band
+        # complex noise power; the windows come from one region fetch (K2)
+        k = self.noise_filter.shape[0]
+        region = 2 * w + k
+        tc2 = torch.clamp(ti - w - (k - 1) // 2, 0, t - region)
+        starts = (tc2 + torch.arange(c, device=x.device)[:, None] * t).reshape(-1)
+        wnr, wni = fetch_regions(
+            x.real.contiguous().reshape(-1), x.imag.contiguous().reshape(-1),
+            starts, region,
+        )
+        wnr = wnr.view(c, -1, region)
+        wni = wni.view(c, -1, region)
+        h_rev = self.noise_filter.flip(0).tolist()
+        win = 2 * w + 1
+        hp_r = h_rev[0] * wnr[..., 0:win]
+        hp_i = h_rev[0] * wni[..., 0:win]
+        for j in range(1, k):
+            hp_r = hp_r + h_rev[j] * wnr[..., j : j + win]
+            hp_i = hp_i + h_rev[j] * wni[..., j : j + win]
+        pw = hp_r**2 + hp_i**2  # [C, D, 2w+1]
+        noise_power = pw.mean(dim=-1) / self.noise_gain.to(torch.float32)
+        noise_power = torch.clamp(noise_power, min=1e-12)
+        sync_power = amplitude**2 * self_corr
+        esn0 = 10.0 * torch.log10(
+            torch.clamp(
+                sync_power
+                * float(cfg.samples_per_symbol)
+                / (noise_power * float(self.sync_len)),
+                min=1e-12,
+            )
+        )
+        # sort by index, invalid last
+        key = torch.where(cand_valid, ti, torch.iinfo(torch.int32).max)
+        order = torch.argsort(key, dim=1, stable=True)
+
+        def sel(a):
+            a = a.gather(1, order)
+            return a[0] if single else a
+
+        det = Detections(
+            index=sel(ti + index0),
+            valid=sel(cand_valid),
+            amplitude=sel(amplitude),
+            phase=sel(phase),
+            freq=sel(freq),
+            freq_bin=sel(bi - cfg.freq_bins),
+            time_est=sel(time_est),
+            noise_power=sel(noise_power),
+            esn0_db=sel(esn0),
+            overflow=overflow[0] if single else overflow,
+        )
+        return det

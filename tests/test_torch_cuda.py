@@ -1,0 +1,90 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU (Hopper,
+sm_90a) and nvcc; elsewhere they skip. They import no JAX, so they also run
+where JAX is not installed:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from gr4_packet_modem_tpu_torch.ops import _build, ldpc  # noqa: E402
+from gr4_packet_modem_tpu_torch.ops.costas_cuda import costas_track, costas_track_plain  # noqa: E402
+from gr4_packet_modem_tpu_torch.ops.fetch_cuda import fetch_regions, fetch_regions_plain  # noqa: E402
+from gr4_packet_modem_tpu_torch.ops.ldpc_cuda import ldpc_totals  # noqa: E402
+from gr4_packet_modem_tpu_torch.ops.matched_cuda import matched_filter, matched_filter_plain  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def test_fetch_bit_exact(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    t, d, r = 100_000, 37, 1569
+    xr = torch.randn(t, generator=g, device=dev)
+    xi = torch.randn(t, generator=g, device=dev)
+    starts = 2 * torch.randint(0, (t - r) // 2, (d,), generator=g, device=dev) + 1
+    starts[0] = t - r
+    kr, ki = fetch_regions(xr, xi, starts, r)
+    pr, pi = fetch_regions_plain(xr, xi, starts, r)
+    assert torch.equal(kr, pr) and torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("s,short", [(192, 0), (300, 7)])
+def test_matched_filter(dev, s, short):
+    g = torch.Generator(device=dev).manual_seed(s)
+    d, k, sps = 130, 44, 4
+    r = sps * (s - 1) + k - short  # short: the tail reads zeros
+    zr = torch.randn(d, r, generator=g, device=dev)
+    zi = torch.randn(d, r, generator=g, device=dev)
+    taps = torch.randn(d, k, generator=g, device=dev)
+    for a, b in zip(matched_filter(zr, zi, taps, sps, s), matched_filter_plain(zr, zi, taps, sps, s)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("s,offset", [(192, 0), (700, 192)])
+def test_costas(dev, s, offset):
+    rng = np.random.default_rng(s)
+    b = 70
+    sym = (rng.standard_normal((b, s)) + 1j * rng.standard_normal((b, s))).astype(np.complex64)
+    sym = torch.from_numpy(sym).to(dev)
+    ph0 = torch.from_numpy(rng.uniform(-np.pi, np.pi, b).astype(np.float32)).to(dev)
+    fr0 = torch.from_numpy(rng.uniform(-0.01, 0.01, b).astype(np.float32)).to(dev)
+    out, ph, fr = costas_track(sym, ph0, fr0, offset=offset)
+    ref, ph_ref, fr_ref = costas_track_plain(sym, ph0, fr0, offset=offset)
+    if s == 192:  # random symbols: the loop does not lock, so only short runs
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+        torch.testing.assert_close(ph, ph_ref, rtol=0, atol=1e-5)
+    assert out.shape == (b, s) and torch.isfinite(torch.view_as_real(out)).all()
+
+
+def test_ldpc_bit_exact(dev):
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import reference_impl as ref
+
+    rng = np.random.default_rng(3)
+    b = 300
+    headers = rng.integers(0, 256, (b, 4), dtype=np.uint8)
+    cw = np.unpackbits(np.stack([ref.ldpc_encode_bytes(h)[:16] for h in headers]), axis=1)
+    sigma = np.sqrt(1.0 / (2 * 10 ** (rng.uniform(-6, 4, (b, 1)) / 10)))
+    llr = (2.0 / sigma**2) * (1.0 - 2.0 * cw + sigma * rng.standard_normal(cw.shape))
+    llr = torch.from_numpy(llr.astype(np.float32)).to(dev)
+    t = ldpc.decoder_tables()
+    cv, ve = (torch.from_numpy(a).to(dev) for a in ldpc.edge_tables(t["vidx"], t["vmask"], 128))
+    before = _build.launch_counts()["ldpc"]
+    total = ldpc_totals(llr, cv, ve)
+    assert _build.launch_counts()["ldpc"] == before + 1
+    assert torch.equal(total, ldpc.ldpc_totals_plain(llr, cv, ve))
