@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's receive chain once on one NVIDIA GPU.
+"""Drive the PyTorch port's receive paths once on one NVIDIA GPU.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: require CUDA, print the card's name and power limit;
 2. build: compile the CUDA kernels (``gr4_packet_modem_tpu_torch/csrc``)
-   with nvcc into ``build/kernels/``;
+   with nvcc, one process per source, into ``build/kernels/``;
 3. kernels: hold each kernel against its plain PyTorch version on the card
    at the receive chain's shapes, and time both (CUDA events, median);
 4. slice: ``Receiver.bank_step`` at the bench geometry (64 channels of
    2**19 samples of back-to-back 1500-byte bursts, 9 frequency bins,
-   1536-byte max payload, 24 detection slots, V&V payload carrier, fft
+   1536-byte max payload, 24 detection slots, V&V payload carrier, fused
    acquisition); every packet fully inside the block must decode
    byte-exact, and every kernel must have been launched by that run. Then
-   the rate, the split by stage and the peak device memory, and one call
-   of the single-channel ``entry()`` step.
+   the rate, the split by stage and the peak device memory. The same bank
+   step with fft acquisition runs second and must find the same
+   detections. Then one call of the single-channel ``entry()`` step;
+5. streaming: ``StreamingBank`` (64 channels, float32 and int8 wires) and
+   ``StreamingReceiver`` fed whole 12-burst tiles as bench.py feeds them;
+   every packet must come out exactly once, byte-exact, at its index, with
+   no saturated block. Prints the sustained rate, the per-block host split
+   and the pinned host<->device bandwidth measured in the same process.
 
 The stimulus is made in numpy by ``tests/reference_impl.py`` (the
 sequential transmitter the JAX transmitter is pinned to). The last line of
@@ -24,12 +30,14 @@ kernels as JSON. Run: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -39,12 +47,16 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 REPLACES = {
     "fetch": ("gr4_packet_modem_tpu_torch/csrc/fetch.cu",
               "gr4_packet_modem_tpu/ops/fetch_pallas.py:303"),
+    "fetch_rows": ("gr4_packet_modem_tpu_torch/csrc/fetch.cu",
+                   "gr4_packet_modem_tpu/ops/fetch_pallas.py:226"),
     "matched": ("gr4_packet_modem_tpu_torch/csrc/matched.cu",
                 "gr4_packet_modem_tpu/ops/matched_pallas.py:133"),
     "costas": ("gr4_packet_modem_tpu_torch/csrc/costas.cu",
                "gr4_packet_modem_tpu/ops/costas_pallas.py:183"),
     "ldpc": ("gr4_packet_modem_tpu_torch/csrc/ldpc.cu",
              "gr4_packet_modem_tpu/ops/ldpc_pallas.py:139"),
+    "correlate": ("gr4_packet_modem_tpu_torch/csrc/correlate.cu",
+                  "gr4_packet_modem_tpu/ops/acquire_pallas.py:375"),
 }
 
 
@@ -74,14 +86,50 @@ def time_ms(torch, fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+# -------------------------------------------------------------- stimulus
+
+
+def bench_stream():
+    """bench.py's burst pattern: 12 x 1500-byte bursts back to back.
+    Returns (samples, payloads, burst start offsets)."""
+    import reference_impl as ref
+
+    rng = np.random.default_rng(0)
+    payloads = [rng.integers(0, 256, 1500, dtype=np.uint8) for _ in range(12)]
+    bursts = [ref.burst_samples(p, packet_index=i) for i, p in enumerate(payloads)]
+    lens = np.array([b.size for b in bursts])
+    return np.concatenate(bursts), payloads, np.concatenate([[0], np.cumsum(lens)[:-1]])
+
+
+def bench_signal(block: int, channels: int):
+    """bench.py's stimulus: the burst pattern tiled over the block, channel
+    c rotated by exp(1j*0.1*c). Returns (bank samples [C, block], payloads
+    in index order of the packets fully inside the block, their starts)."""
+    stream, payloads, offsets = bench_stream()
+    lens = np.diff(np.concatenate([offsets, [stream.size]]))
+    reps = block // stream.size + 1
+    signal = np.tile(stream, reps)[:block]
+    starts = (offsets[None, :] + (np.arange(reps) * stream.size)[:, None]).ravel()
+    inside = starts + np.tile(lens, reps) <= block
+    expected = [payloads[i % 12] for i in np.nonzero(inside)[0]]
+    rot = np.exp(1j * 0.1 * np.arange(channels))[:, None]
+    return (signal[None, :] * rot).astype(np.complex64), expected, starts[inside]
+
+
 # ---------------------------------------------------------------- kernels
 
 
 def kernel_checks(torch, card: str) -> dict:
     """Each kernel against its plain version at the chain's shapes."""
+    from gr4_packet_modem_tpu_torch.entry import BENCH_BLOCK, BENCH_CHANNELS, BENCH_CONFIG
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver
     from gr4_packet_modem_tpu_torch.ops import ldpc
+    from gr4_packet_modem_tpu_torch.ops.acquire import AcquisitionConfig, SyncwordAcquirer
+    from gr4_packet_modem_tpu_torch.ops.acquire_cuda import fused_best_power, fused_best_power_plain
     from gr4_packet_modem_tpu_torch.ops.costas_cuda import costas_track, costas_track_plain
-    from gr4_packet_modem_tpu_torch.ops.fetch_cuda import fetch_regions, fetch_regions_plain
+    from gr4_packet_modem_tpu_torch.ops.fetch_cuda import (
+        fetch_regions, fetch_regions_plain, fetch_rows, fetch_rows_plain,
+    )
     from gr4_packet_modem_tpu_torch.ops.ldpc_cuda import ldpc_totals
     from gr4_packet_modem_tpu_torch.ops.matched_cuda import matched_filter, matched_filter_plain
 
@@ -91,7 +139,7 @@ def kernel_checks(torch, card: str) -> dict:
     res = {}
 
     def record(name, shape, err, ms, plain_ms, main):
-        log(f"  {name:8s} {shape:34s} max_abs_err={err:.3e} kernel={ms:.4f} ms "
+        log(f"  {name:10s} {shape:34s} max_abs_err={err:.3e} kernel={ms:.4f} ms "
             f"plain={plain_ms:.4f} ms  [{card}]")
         r = res.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -112,7 +160,62 @@ def kernel_checks(torch, card: str) -> dict:
         ms = time_ms(torch, lambda: fetch_regions(xr, xi, starts, r))
         pms = time_ms(torch, lambda: fetch_regions_plain(xr, xi, starts, r))
         record("fetch", f"D={d} R={r}", 0.0, ms, pms, r == 24_680)
+
+    # K2b row fetch: one plane of the same size (the bank's best-power
+    # plane on the main path, where R=3), odd starts and both edge starts
+    for r in (3, 297, 1569):
+        starts = 2 * torch.randint(0, (t - r) // 2, (d,), generator=gen, device=dev) + 1
+        starts[0], starts[1] = 0, t - r
+        k = fetch_rows(xr, starts, r)
+        torch.cuda.synchronize()
+        check(torch.equal(k, fetch_rows_plain(xr, starts, r)), f"fetch_rows R={r}: not bit-exact")
+        ms = time_ms(torch, lambda: fetch_rows(xr, starts, r))
+        pms = time_ms(torch, lambda: fetch_rows_plain(xr, starts, r))
+        record("fetch_rows", f"D={d} R={r}", 0.0, ms, pms, r == 3)
     del xr, xi
+
+    # K1 fused correlator: the bench bank (syncwords at every burst start)
+    # in noise, framed by the acquirer as the main path frames it; then
+    # N=4096 on a small bank
+    samples, _, burst_starts = bench_signal(BENCH_BLOCK, BENCH_CHANNELS)
+    rx = Receiver(BENCH_CONFIG, dev)
+    fp, pt = rx.front_pad, rx.pad_tail()
+    cases = [("N=2048", rx.acquirer, samples, fp + burst_starts)]
+    acq4 = SyncwordAcquirer(AcquisitionConfig(fft_size=4096, backend="fused"), dev)
+    small = samples[:2, : 1 << 16]
+    cases.append(("N=4096", acq4, small, fp + burst_starts[burst_starts < 1 << 16]))
+    for label, a, sig, peaks in cases:
+        c = sig.shape[0]
+        x = torch.zeros(c, fp + sig.shape[1] + pt, dtype=torch.complex64, device=dev)
+        x[:, fp : fp + sig.shape[1]] = torch.from_numpy(sig).to(dev)
+        x += 0.05 * torch.randn(x.shape, generator=gen, device=dev, dtype=torch.complex64)
+        n, s = a.config.fft_size, a.stride
+        ar, ai, br, bi, nf, rows = a._frames_planes(x)
+        args = (ar, ai, br, bi, a.replica_fft_r, a.replica_fft_i, n)
+        kp, kb = fused_best_power(*args)
+        torch.cuda.synchronize()
+        pp, pb = fused_best_power_plain(*args)
+
+        def valid(v):
+            return v.view(c, rows, n)[:, :nf, :s].reshape(c, nf * s)
+
+        kp, kb, pp, pb = map(valid, (kp, kb, pp, pb))
+        scale = pp.max().item()
+        check(torch.allclose(kp, pp, rtol=1e-4, atol=1e-5 * scale),
+              f"correlate {label}: best_pow beyond rtol 1e-4, atol 1e-5 x max")
+        agree = (kb == pb).float().mean().item()
+        check(agree >= 0.999, f"correlate {label}: best_bin equal on {agree:.6f} < 0.999")
+        pk = torch.from_numpy(peaks).to(dev)
+        check(torch.equal(kb[:, pk], pb[:, pk]), f"correlate {label}: best_bin differs at a syncword")
+        log(f"  correlate {label}: best_bin equal on {agree:.6f} of {kb.numel()} valid samples "
+            f"and at all {pk.numel() * c} syncword starts (bins {sorted(set(kb[:, pk].flatten().tolist()))})")
+        err = (kp - pp).abs().max().item()
+        del kp, kb, pp, pb
+        ms = time_ms(torch, lambda: fused_best_power(*args))
+        pms = time_ms(torch, lambda: fused_best_power_plain(*args))
+        record("correlate", f"C={c} FPAD={c * rows} S={s} {label} nb={a.num_bins}", err, ms, pms,
+               label == "N=2048")
+        del x, ar, ai, br, bi, args
 
     # K3 matched filter: header (S=192) and payload (S=6160) passes
     k, sps = 44, 4
@@ -163,7 +266,6 @@ def kernel_checks(torch, card: str) -> dict:
         record("costas", f"B={d} S={s} offset={offset}", err, ms, pms, s == 192)
 
     # K5 LDPC BP: noisy codewords from -6 to +4 dB, some not converging
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
     import reference_impl as ref
 
     headers = rng.integers(0, 256, (d, 4), dtype=np.uint8)
@@ -197,65 +299,36 @@ def kernel_checks(torch, card: str) -> dict:
 # ------------------------------------------------------------------ slice
 
 
-def bench_signal(block: int, channels: int):
-    """bench.py's stimulus: 12 x 1500-byte bursts tiled over the block,
-    channel c rotated by exp(1j*0.1*c). Returns (bank samples [C, block],
-    payloads in index order of the packets fully inside the block)."""
-    import reference_impl as ref
-
-    rng = np.random.default_rng(0)
-    payloads = [rng.integers(0, 256, 1500, dtype=np.uint8) for _ in range(12)]
-    bursts = [ref.burst_samples(p, packet_index=i) for i, p in enumerate(payloads)]
-    stream = np.concatenate(bursts)
-    reps = block // stream.size + 1
-    signal = np.tile(stream, reps)[:block]
-    lens = np.array([b.size for b in bursts])
-    starts = (np.concatenate([[0], np.cumsum(lens)[:-1]])[None, :]
-              + (np.arange(reps) * stream.size)[:, None]).ravel()
-    inside = starts + np.tile(lens, reps) <= block
-    expected = [payloads[i % 12] for i in np.nonzero(inside)[0]]
-    rot = np.exp(1j * 0.1 * np.arange(channels))[:, None]
-    return (signal[None, :] * rot).astype(np.complex64), expected
-
-
-def slice_run(torch, card: str) -> dict:
-    from gr4_packet_modem_tpu_torch.entry import BENCH_BLOCK, BENCH_CHANNELS, bank_entry, entry
+def bank_run(torch, card: str, rx, x, expected, label: str) -> dict:
+    """One ``bank_step`` of ``x`` with the launch counts set to 0 just
+    before it and read just after; the decode gate; then the rate, the
+    split by stage and the peak device memory."""
     from gr4_packet_modem_tpu_torch.ops import _build
 
-    dev = torch.device("cuda")
-    channels, block = BENCH_CHANNELS, BENCH_BLOCK
-    step, (x,) = bank_entry(dev)
-    rx = step.__self__
-    fp = rx.front_pad
-    samples, expected = bench_signal(block, channels)
-    x[:, fp : fp + block] = torch.from_numpy(samples).to(dev)
-    log(f"  bank {tuple(x.shape)} complex64, {len(expected)} packets per channel inside the block")
-
+    channels, block = x.shape[0], x.shape[1] - rx.front_pad - rx.pad_tail()
     _build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    det, hdr, res, keep = step(x)
+    det, hdr, res, keep = rx.bank_step(x)
     torch.cuda.synchronize()
     launches = _build.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    log(f"  launches in one bank_step: {launches}")
-    for k in _build.KERNELS:
-        check(launches[k] > 0, f"kernel {k} was not launched by the main path")
+    log(f"  {label}: launches in one bank_step: {launches}")
 
-    check(not bool(det.overflow), "detections overflowed the slots")
+    check(not bool(det.overflow), f"{label}: detections overflowed the slots")
     acc = res.accepted.view(channels, -1).cpu().numpy()
     lens = res.lengths.view(channels, -1).cpu().numpy()
     data = res.data.view(channels, acc.shape[1], -1).cpu().numpy()
     esn0 = det.esn0_db.view(channels, -1).cpu().numpy()
     check(int(acc.sum()) == channels * len(expected),
-          f"accepted {int(acc.sum())} of {channels * len(expected)} packets")
+          f"{label}: accepted {int(acc.sum())} of {channels * len(expected)} packets")
     for c in range(channels):
         rows = np.nonzero(acc[c])[0]
-        check(len(rows) == len(expected), f"channel {c}: {len(rows)} of {len(expected)} packets")
+        check(len(rows) == len(expected), f"{label} channel {c}: {len(rows)} of {len(expected)} packets")
         for i, p in zip(rows, expected):
             check(lens[c, i] == p.size and np.array_equal(data[c, i, : p.size], p),
-                  f"channel {c} row {i}: payload differs")
-        check(np.isfinite(esn0[c, rows]).all(), f"channel {c}: non-finite esn0")
-    log(f"  decoded {int(acc.sum())}/{channels * len(expected)} packets byte-exact, "
+                  f"{label} channel {c} row {i}: payload differs")
+        check(np.isfinite(esn0[c, rows]).all(), f"{label} channel {c}: non-finite esn0")
+    log(f"  {label}: decoded {int(acc.sum())}/{channels * len(expected)} packets byte-exact, "
         f"esn0 {esn0[acc].min():.1f}..{esn0[acc].max():.1f} dB, "
         f"peak device memory {peak / 2**30:.2f} GiB  [{card}]")
 
@@ -275,7 +348,7 @@ def slice_run(torch, card: str) -> dict:
         return d.esn0_db.sum().item() + h.phase.sum().item() + kp.sum().item()
 
     def full():
-        df, h, r, kp = step(x)
+        df, h, r, kp = rx.bank_step(x)
         return df.esn0_db.sum().item() + r.accepted.sum().item() + r.crc_ok.sum().item()
 
     stages = {}
@@ -291,9 +364,44 @@ def slice_run(torch, card: str) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
         stages[name] = statistics.median(times)
     rate = channels * block / (stages["+payload"] / 1e3)
-    log(f"  stage times (cumulative, median of 5): "
+    log(f"  {label}: stage times (cumulative, median of 5): "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()) + f"  [{card}]")
-    log(f"  rate {rate:.4e} samples/s ({channels} ch x {block} samples per step)  [{card}]")
+    log(f"  {label}: rate {rate:.4e} samples/s ({channels} ch x {block} samples per step)  [{card}]")
+    return {"det": det, "launches": launches, "stages_ms": stages, "rate_sps": rate,
+            "peak_bytes": peak, "packets": int(acc.sum())}
+
+
+def slice_run(torch, card: str) -> dict:
+    from gr4_packet_modem_tpu_torch.entry import BENCH_BLOCK, BENCH_CHANNELS, BENCH_CONFIG, bank_entry, entry
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver
+    from gr4_packet_modem_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    channels, block = BENCH_CHANNELS, BENCH_BLOCK
+    step, (x,) = bank_entry(dev)
+    rx = step.__self__
+    check(rx.acquirer.backend == "fused", f"bench acquisition runs {rx.acquirer.backend}, not fused")
+    fp = rx.front_pad
+    samples, expected, _ = bench_signal(block, channels)
+    x[:, fp : fp + block] = torch.from_numpy(samples).to(dev)
+    log(f"  bank {tuple(x.shape)} complex64, {len(expected)} packets per channel inside the block")
+
+    fused = bank_run(torch, card, rx, x, expected, "fused")
+    for k in _build.KERNELS:
+        check(fused["launches"][k] > 0, f"kernel {k} was not launched by the main path")
+
+    # the fft backend as the second path, on the same bank
+    rx_fft = Receiver(dataclasses.replace(BENCH_CONFIG, acquisition_backend="fft"), dev)
+    fft = bank_run(torch, card, rx_fft, x, expected, "fft")
+    check(fft["launches"]["correlate"] == 0, "the fft path launched the fused correlator")
+    for k in _build.KERNELS:
+        check(k == "correlate" or fft["launches"][k] > 0, f"kernel {k} was not launched by the fft path")
+    a, b = fused.pop("det"), fft.pop("det")
+    v = b.valid
+    check(torch.equal(a.valid, v), "fused and fft detections differ in valid")
+    for f in ("index", "freq_bin"):
+        check(torch.equal(getattr(a, f)[v], getattr(b, f)[v]), f"fused and fft detections differ in {f}")
+    log(f"  fused and fft detections equal on all {int(v.sum())} valid rows (index, valid, freq_bin)")
 
     # the single-channel entry() step once, on three bursts it can decode
     import reference_impl as ref
@@ -308,8 +416,101 @@ def slice_run(torch, card: str) -> dict:
     check(len(got) == len(pays) and all(np.array_equal(g, p) for g, p in zip(got, pays)),
           f"entry(): decoded {len(got)} of {len(pays)} packets")
     log(f"  entry(): decoded {len(got)}/{len(pays)} packets byte-exact")
-    return {"launches": launches, "stages_ms": stages, "rate_sps": rate,
-            "peak_bytes": peak, "packets": int(acc.sum())}
+    return {"fused": fused, "fft": fft}
+
+
+# -------------------------------------------------------------- streaming
+
+
+def pinned_bandwidth(torch, nbytes: int = 1 << 28) -> tuple[float, float]:
+    """(h2d, d2h) bytes/s of pinned host <-> device copies (CUDA events,
+    median of 10)."""
+    h = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    d = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    h2d = time_ms(torch, lambda: d.copy_(h, non_blocking=True))
+    d2h = time_ms(torch, lambda: h.copy_(d, non_blocking=True))
+    return nbytes / (h2d / 1e3), nbytes / (d2h / 1e3)
+
+
+def stream_run(torch, card: str, driver, x_unit, expected, units: int, label: str) -> dict:
+    """bench.py's feed: one warm-up unit, ``units`` timed units, drain,
+    flush. The gate: every packet exactly once, byte-exact, at its index,
+    and no saturated block. The launch counts are set to 0 before the feed
+    and read after it."""
+    from gr4_packet_modem_tpu_torch.ops import _build
+
+    _build.reset_launch_counts()
+    pkts = driver.process(x_unit)
+    blocks0, stats0 = driver.stats["blocks"], dict(driver.stats)
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        for _ in range(units):
+            pkts += driver.process(x_unit)
+        pkts += driver._drain()
+        dt = time.perf_counter() - t0
+    torch.cuda.set_sync_debug_mode("default")
+    blocks = driver.stats["blocks"] - blocks0
+    stats1 = dict(driver.stats)
+    pkts += driver.flush()
+    launches = _build.launch_counts()
+
+    channels = driver.channels
+    check(driver.overflow_blocks == 0 and driver.budget_overflow_blocks == 0,
+          f"{label}: {driver.overflow_blocks} overflow and {driver.budget_overflow_blocks} budget-overflow blocks")
+    check(len(pkts) == channels * len(expected),
+          f"{label}: {len(pkts)} packets, expected {channels * len(expected)}")
+    for c in range(channels):
+        got = sorted((p for p in pkts if p.channel == c), key=lambda p: p.index)
+        check([p.index for p in got] == [i for i, _ in expected], f"{label} channel {c}: indices differ")
+        check(all(np.array_equal(p.data, e) for p, (_, e) in zip(got, expected)),
+              f"{label} channel {c}: a payload differs")
+    check(launches["correlate"] > 0, f"{label}: the fused correlator was not launched")
+    rate = blocks * driver.block * channels / dt
+    per_block = {k: 1e3 * (stats1[k] - stats0[k]) / blocks for k in ("h2d_s", "dispatch_s", "materialize_s")}
+    sync_msgs = sorted({str(w.message).splitlines()[0] for w in syncs if "synchroniz" in str(w.message)})
+    log(f"  {label}: {len(pkts)}/{channels * len(expected)} packets exactly once, byte-exact, at their "
+        f"indices; sustained {rate:.4e} samples/s over {blocks} blocks; per block h2d "
+        f"{per_block['h2d_s']:.2f} ms, dispatch {per_block['dispatch_s']:.2f} ms, materialize "
+        f"{per_block['materialize_s']:.2f} ms  [{card}]")
+    log(f"  {label}: launches {launches}; synchronising calls in the timed feed: "
+        f"{sum('synchroniz' in str(w.message) for w in syncs)} {sync_msgs[:3]}")
+    return {"rate_sps": rate, "blocks": blocks, "per_block_ms": per_block, "launches": launches,
+            "packets": len(pkts)}
+
+
+def streaming_phase(torch, card: str) -> dict:
+    from gr4_packet_modem_tpu_torch.entry import BENCH_BLOCK, BENCH_CHANNELS, BENCH_CONFIG
+    from gr4_packet_modem_tpu_torch.runtime.streaming import StreamingBank, StreamingReceiver
+
+    dev = torch.device("cuda")
+    block, channels, units = BENCH_BLOCK, BENCH_CHANNELS, 3
+    stream, payloads, offsets = bench_stream()
+    reps = -(-block // stream.size)
+    unit = np.tile(stream, reps)  # whole bursts only (bench.py:184-186)
+    starts = (offsets[None, :] + (np.arange(reps) * stream.size)[:, None]).ravel()
+    expected = [(u * unit.size + s, payloads[i % 12])
+                for u in range(1 + units) for i, s in enumerate(starts)]
+    x_unit = (unit[None, :] * np.exp(1j * 0.1 * np.arange(channels))[:, None]).astype(np.complex64)
+    h2d, d2h = pinned_bandwidth(torch)
+    log(f"  pinned copies: h2d {h2d / 1e9:.3f} GB/s, d2h {d2h / 1e9:.3f} GB/s  [{card}]")
+    out = {"h2d_Bps": h2d, "d2h_Bps": d2h}
+    budget = BENCH_CONFIG.max_detections  # per channel: bench.py's "auto" budget
+    for name, wire, nbytes in (("bank_f32", None, 8), ("bank_int8", torch.int8, 2)):
+        bank = StreamingBank(BENCH_CONFIG, dev, channels=channels, block=block, group=16,
+                             transfer_dtype=wire, result_budget=budget * channels)
+        r = stream_run(torch, card, bank, x_unit, expected, units, f"StreamingBank {name[5:]}")
+        r["h2d_share"] = r["rate_sps"] * nbytes / h2d
+        log(f"  StreamingBank {name[5:]}: wire {nbytes} B/sample = {r['rate_sps'] * nbytes / 1e9:.3f} GB/s, "
+            f"{100 * r['h2d_share']:.1f} % of the pinned h2d bandwidth  [{card}]")
+        out[name] = r
+        del bank
+    srx = StreamingReceiver(BENCH_CONFIG, dev, block=block, result_budget=budget)
+    r = stream_run(torch, card, srx, unit.astype(np.complex64), expected, units, "StreamingReceiver f32")
+    r["h2d_share"] = r["rate_sps"] * 8 / h2d
+    out["receiver_f32"] = r
+    return out
 
 
 def main() -> int:
@@ -347,18 +548,23 @@ def main() -> int:
     # phase 4: the slice
     log("slice:")
     sres = slice_run(torch, card)
+
+    # phase 5: the streaming drivers
+    log("streaming:")
+    stres = streaming_phase(torch, card)
     check("jax" not in sys.modules, "jax was imported")
 
+    main_launches = sres["fused"]["launches"]
     kernels = [
         {"name": k, "route": "cuda", "source": REPLACES[k][0],
-         "replaces": REPLACES[k][1], "launches": sres["launches"][k],
+         "replaces": REPLACES[k][1], "launches": main_launches[k],
          "max_abs_err": kres[k]["max_abs_err"], "ms": kres[k]["ms"],
          "plain_ms": kres[k]["plain_ms"]}
         for k in _build.KERNELS
     ]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": kernels, "slice": sres}, f, indent=1)
+        json.dump({"card": card, "kernels": kernels, "slice": sres, "streaming": stres}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

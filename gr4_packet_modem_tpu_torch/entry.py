@@ -4,7 +4,7 @@
 decode -> overlap filter -> payload decode) and an example input;
 :func:`bank_entry` returns the bank step at the bench geometry (64 channels
 of 2**19 samples, 9 frequency bins, 1536-byte payloads, 24 detection slots,
-V&V payload carrier, fft acquisition).
+V&V payload carrier, fused acquisition: bench.py's default backend).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ BENCH_CONFIG = RxConfig(
     max_detections=24,
     freq_bins=4,
     payload_carrier="vv",
-    acquisition_backend="fft",
+    acquisition_backend="fused",
 )
 
 

@@ -102,7 +102,8 @@ class RxConfig:
     max_detections: int = 64
     freq_bins: int = 4
     power_threshold: float = C.SYNC_POWER_THRESHOLD
-    # "fft" overlap-save correlation; "auto" resolves to it
+    # "fft" overlap-save correlation, "fused" the K1 correlator; "auto" is
+    # "fused" on a CUDA device (AcquisitionConfig.resolved_backend)
     acquisition_backend: str = "auto"
     acquisition_fft_size: int = C.SYNC_FFT_SIZE
     num_pfb_arms: int = 32
@@ -128,7 +129,9 @@ class RxConfig:
                 f"({self.max_payload_syms} < {self.vv_block}): raise "
                 f"max_payload_len to >= {self.vv_block // 4 - C.CRC_NUM_BYTES}"
             )
-        AcquisitionConfig(backend=self.acquisition_backend)  # validates
+        AcquisitionConfig(  # validates
+            fft_size=self.acquisition_fft_size, backend=self.acquisition_backend
+        )
 
     @property
     def max_payload_syms(self) -> int:
@@ -192,7 +195,9 @@ class Receiver(nn.Module):
         )
 
     def _derive_tables(self) -> None:
-        """Tables computed from the carried ones: the LDPC index tables."""
+        """Tables computed from the carried ones: the acquirer's, the LDPC
+        index tables and the V&V interpolation tables."""
+        self.acquirer.derive_tables()
         chk_vars, var_edges = edge_tables(
             self.ldpc_vidx.cpu().numpy(), self.ldpc_vmask.cpu().numpy(),
             self.ldpc_h.shape[1],
@@ -200,6 +205,16 @@ class Receiver(nn.Module):
         dev = self.ldpc_vidx.device
         self.register_buffer("ldpc_chk_vars", torch.tensor(chk_vars, device=dev), persistent=False)
         self.register_buffer("ldpc_var_edges", torch.tensor(var_edges, device=dev), persistent=False)
+        # V&V: each payload symbol's two block centres and its weight
+        # (_vv_track), made here so that a step copies nothing to the card
+        blk, s = self.config.vv_block, self.config.max_payload_syms
+        nb = s // blk
+        pos = (np.arange(s) - (blk - 1) / 2.0) / blk
+        b0 = np.clip(np.floor(pos).astype(np.int64), 0, nb - 1)
+        b1 = np.clip(b0 + 1, 0, nb - 1)
+        frac = np.clip(pos - b0, 0.0, 1.0).astype(np.float32)
+        for name, value in (("vv_b0", b0), ("vv_b1", b1), ("vv_frac", frac)):
+            self.register_buffer(name, torch.tensor(value, device=dev), persistent=False)
 
     def load_tables(self, tables: dict[str, torch.Tensor]) -> None:
         """Replace the constant tables (names of ``models/tables.py``,
@@ -419,15 +434,8 @@ class Receiver(nn.Module):
         quarter = float(np.float32(np.pi / 4))
         resid0 = torch.remainder(resid0 + quarter, float(np.float32(np.pi / 2))) - quarter
         resid = torch.cat([resid0, resid0 + torch.cumsum(d4 / 4.0, dim=-1)], dim=-1)
-        pos = (np.arange(s) - (blk - 1) / 2.0) / blk
-        b0_np = np.clip(np.floor(pos).astype(np.int64), 0, nb - 1)
-        b1_np = np.clip(b0_np + 1, 0, nb - 1)
-        frac = torch.tensor(
-            np.clip(pos - b0_np, 0.0, 1.0).astype(np.float32), device=syms.device
-        )
-        b0 = torch.tensor(b0_np, device=syms.device)
-        b1 = torch.tensor(b1_np, device=syms.device)
-        resid_per_sym = resid[:, b0] * (1.0 - frac) + resid[:, b1] * frac
+        frac = self.vv_frac
+        resid_per_sym = resid[:, self.vv_b0] * (1.0 - frac) + resid[:, self.vv_b1] * frac
         return z * torch.complex(torch.cos(resid_per_sym), -torch.sin(resid_per_sym))
 
     # ----------------------------------------------------------- payload pass

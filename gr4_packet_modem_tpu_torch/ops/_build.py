@@ -1,8 +1,9 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-All of ``gr4_packet_modem_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` into
-one shared library with a plain C interface, at first use, for Hopper
-(``sm_90a``), and loaded with ``ctypes``. The library lands in
+All of ``gr4_packet_modem_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` (one
+process per source, all in parallel) and linked into one shared library
+with a plain C interface, at first use, for Hopper (``sm_90a``), and loaded
+with ``ctypes``. The library lands in
 ``build/kernels/`` beside the package, under a name that hashes the sources
 and the compiler flags, so an edited source is rebuilt and an unchanged one
 is loaded as it is.
@@ -36,7 +37,7 @@ __all__ = [
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
-KERNELS = ("fetch", "matched", "costas", "ldpc")
+KERNELS = ("fetch", "fetch_rows", "matched", "costas", "ldpc", "correlate")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +49,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # xr, xi, starts, outr, outi, total_len, region_len, d, stream
     "pm_fetch_regions": [_P, _P, _P, _P, _P, _I64, _I, _I, _P],
+    # x, starts, out, total_len, region_len, d, stream
+    "pm_fetch_rows": [_P, _P, _P, _I64, _I, _I, _P],
+    # ar, ai, br, bi, rf, tw, best_pow, best_bin, fpad, s, nb, log2n, stream
+    "pm_correlate": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # zr, zi, taps, outr, outi, region_len, ntaps, sps, num_syms, d, stream
     "pm_matched_filter": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # sym, out, ph0, fr0, ph_end, fr_end, b, s, offset, stream
@@ -75,10 +80,14 @@ def _defines() -> list[str]:
     ]
 
 
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+
 def _flags() -> list[str]:
+    """Compile flags of every source (no fast math)."""
     return [
-        "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *_defines(),
+        *_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        *_defines(),
     ]
 
 
@@ -106,21 +115,39 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the kernels unless this exact build already exists. Returns
+    """Compile the kernels unless this exact build already exists: one
+    ``nvcc -c`` per source, all started together, then one link. Returns
     the library's path; the ptxas report (registers, shared memory, spills)
     is kept beside it with the suffix ``.log``."""
     path = library_path()
     if path.exists():
         return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objdir = BUILD_DIR / f"{path.stem}.{os.getpid()}.objs"
+    objdir.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_flags(), "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+    nvcc, sources = _nvcc(), _sources()
+    objs = [str(objdir / f"{src.stem}.o") for src in sources]
+    try:
+        jobs = [
+            subprocess.Popen(
+                [nvcc, *_flags(), "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(sources, objs)
+        ]
+        logs = [job.communicate()[0] for job in jobs]
+        for src, job, log in zip(sources, jobs, logs):
+            if job.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({job.returncode}):\n{log}")
+        link = subprocess.run(
+            [nvcc, *_ARCH, "-shared", "-o", str(tmp), *objs],
+            capture_output=True, text=True,
         )
-    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
+    path.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, path)
     return path
 

@@ -1,17 +1,22 @@
 """Syncword acquisition: overlap-save correlation + CFAR detection.
 
-Port of the ``fft`` backend of ``gr4_packet_modem_tpu/ops/acquire.py``. The
-correlation against the ``2*freq_bins+1`` frequency-shifted syncword
-replicas runs as batched overlap-save FFTs on ``torch.fft``; detection is
-the chunked peak detector (event-identical to the reference's running-best
-state machine) and the candidate estimates are the closed-form math of
-syncword_detection.hpp:56-115, vectorised over candidates. Every function
-takes a bank ``[C, T]`` (a single channel is ``[T]``): acquisition is
-batched over channels.
+Port of the ``fft`` and ``fused`` backends of
+``gr4_packet_modem_tpu/ops/acquire.py``. The correlation against the
+``2*freq_bins+1`` frequency-shifted syncword replicas runs either as batched
+overlap-save FFTs on ``torch.fft`` (``fft``), or through the K1 fused
+correlator (``ops/acquire_cuda.py``), which reduces it to the best-bin power
+and bin per sample without materialising the per-bin correlations
+(``fused``). Detection is the chunked peak detector (event-identical to the
+reference's running-best state machine) and the candidate estimates are the
+closed-form math of syncword_detection.hpp:56-115, vectorised over
+candidates; the fused backend recomputes the complex correlation and the
+adjacent-bin powers exactly at the candidates. Every function takes a bank
+``[C, T]`` (a single channel is ``[T]``): acquisition is batched over
+channels.
 
 The noise window of each candidate is fetched by the K2 region-fetch kernel
-(``ops/fetch_cuda.py``). The fused correlator (the JAX package's ``fused``
-backend, a Pallas kernel) is not ported yet.
+and the neighbour powers of each candidate by the K2b row fetch
+(``ops/fetch_cuda.py``).
 """
 
 from __future__ import annotations
@@ -25,8 +30,9 @@ from torch import nn
 from gr4_packet_modem_tpu.utils import constants as C
 from gr4_packet_modem_tpu.utils.firdes import rx_rrc_taps
 
+from .acquire_cuda import KERNEL_FFT_SIZES, fused_best_power
 from .costas import PI, TWO_PI
-from .fetch_cuda import fetch_regions
+from .fetch_cuda import fetch_regions, fetch_rows
 
 __all__ = [
     "AcquisitionConfig", "Detections", "SyncwordAcquirer",
@@ -56,16 +62,29 @@ class AcquisitionConfig:
     time_threshold: int = C.SYNC_TIME_THRESHOLD
     power_threshold: float = C.SYNC_POWER_THRESHOLD
     max_detections: int = 64  # static bound per processed block
-    # "fft" (overlap-save, as the reference) is the only backend ported;
-    # "auto" resolves to it
+    # "fft": overlap-save FFTs, as the reference; "fused": the K1 correlator;
+    # "auto": "fused" on a CUDA device when the kernel takes fft_size, else
+    # "fft" (resolved_backend)
     backend: str = "auto"
 
     def __post_init__(self):
-        if self.backend not in ("auto", "fft"):
+        if self.backend not in ("auto", "fft", "fused"):
             raise ValueError(
                 f"acquisition backend {self.backend!r} is not ported "
-                '(the port runs "fft"; "auto" resolves to it)'
+                '(the port runs "fft" and "fused"; "auto" picks one)'
             )
+        if self.backend == "fused" and self.fft_size % 2048:
+            raise ValueError(
+                "the fused backend needs fft_size to be a multiple of 2048; "
+                'use backend="auto" to run fft for other sizes'
+            )
+
+    def resolved_backend(self, device: str | torch.device) -> str:
+        """The backend an acquirer on ``device`` runs."""
+        if self.backend != "auto":
+            return self.backend
+        on_cuda = torch.device(device).type == "cuda"
+        return "fused" if on_cuda and self.fft_size in KERNEL_FFT_SIZES else "fft"
 
 
 @dataclass
@@ -115,15 +134,21 @@ def acquirer_tables(config: AcquisitionConfig) -> dict[str, np.ndarray]:
 
 
 def chunked_peak_detect(
-    best_pow: torch.Tensor, w: int, d: int, power_threshold: float
+    best_pow: torch.Tensor, w: int, d: int, power_threshold: float,
+    fresh_lo: int | torch.Tensor | None = None,
+    fresh_hi: int | torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Windowed peak detection + CFAR over ``best_pow`` ``[C, T]``.
 
     Sample ``t`` is a detection event iff its power is >= everything in
     the centred window ``[t-w, t+w]``, strictly > everything in
     ``[t-w, t-1]`` (first index wins ties), both window halves exist
-    (``w <= t < T-w``), and at least half the window is below
-    ``power/power_threshold`` (the history-median CFAR proxy). The ``d``
+    (``w <= t < T-w``), ``t`` lies in ``[fresh_lo, fresh_hi)`` where those
+    are given, and at least half the window is below
+    ``power/power_threshold`` (the history-median CFAR proxy). The fresh
+    window applies before the slots are chosen, so a streaming driver's
+    look-back and lookahead peaks neither take slots nor set ``overflow``
+    (they are seen when their own block is fresh). The ``d``
     slots go to the top-d passing events by power; ``overflow`` flags more
     passing events than slots. Every event is its w-sized chunk's first
     argmax, so the window tests run as offset-masked reductions over the
@@ -151,6 +176,10 @@ def chunked_peak_detect(
     pref_next = torch.where(off <= o3, nxt, neg).amax(dim=-1)
     is_peak = (b > suff_prev) & (b >= pref_next)
     pos_ok = (ti >= w) & (ti < tlen - w)
+    if fresh_lo is not None:
+        pos_ok &= ti >= fresh_lo
+    if fresh_hi is not None:
+        pos_ok &= ti < fresh_hi
     thr = (b / power_threshold)[..., None]
     below = (
         ((prv < thr) & (off >= o3)).sum(dim=-1)
@@ -169,12 +198,17 @@ def chunked_peak_detect(
     return top_pow, top_idx, overflow
 
 
+# frames per TPU kernel block; the port keeps the JAX layout's FPAD rounding
+_BLOCK_FRAMES = 16
+
+
 class SyncwordAcquirer(nn.Module):
     """Batched syncword acquisition; the constant tables are buffers."""
 
     def __init__(self, config: AcquisitionConfig, device: str | torch.device):
         super().__init__()
         self.config = config
+        self.backend = config.resolved_backend(device)
         tables = acquirer_tables(config)
         self.sync_len = tables["replicas"].shape[1]
         self.num_bins = 2 * config.freq_bins + 1
@@ -186,9 +220,32 @@ class SyncwordAcquirer(nn.Module):
                 f"fft_size must be >= {2 * (self.sync_len - 1)} "
                 f"(2*(sync_len-1)) for the overlap-save framing"
             )
+        # the fused backend carves each candidate's syncword window out of
+        # its noise region, at an offset of up to time_threshold + 16: the
+        # window fits only if sync_len <= time_threshold + 17 (the JAX
+        # package assumes it unchecked)
+        k = tables["noise_filter"].size
+        if self.backend == "fused" and self.sync_len > config.time_threshold + k // 2 + 1:
+            raise ValueError(
+                f"the fused backend needs sync_len ({self.sync_len}) <= "
+                f"time_threshold + {k // 2 + 1} ({config.time_threshold + k // 2 + 1})"
+            )
         self.stride = n - self.sync_len + 1
         for name, value in tables.items():
             self.register_buffer(name, torch.tensor(value, device=device))
+        self.derive_tables()
+
+    def derive_tables(self) -> None:
+        """Tables computed from the carried ones (call again after loading
+        new ones): the conj replica spectra as I/Q planes ``[nb, N]``, and
+        the noise filter's taps, time-reversed, as Python floats (so the
+        step reads nothing back from the device)."""
+        rep = self.replicas.new_zeros(self.num_bins, self.config.fft_size)
+        rep[:, : self.sync_len] = self.replicas
+        rf = torch.fft.fft(rep, dim=-1).conj()
+        self.register_buffer("replica_fft_r", rf.real.contiguous(), persistent=False)
+        self.register_buffer("replica_fft_i", rf.imag.contiguous(), persistent=False)
+        self._noise_taps = self.noise_filter.flip(0).tolist()
 
     # ------------------------------------------------------------ correlation
 
@@ -207,12 +264,6 @@ class SyncwordAcquirer(nn.Module):
         tail = shifted[:, : nf * s].reshape(c, nf, s)[:, :, : n - s]
         return torch.cat([body, tail], dim=2)
 
-    def _replica_fft_conj(self) -> torch.Tensor:
-        """conj(FFT(zero-padded replicas)) ``[nb, N]``."""
-        rep = self.replicas.new_zeros(self.num_bins, self.config.fft_size)
-        rep[:, : self.sync_len] = self.replicas
-        return torch.fft.fft(rep, dim=-1).conj()
-
     def _correlate_fft(self, x: torch.Tensor) -> torch.Tensor:
         """Complex correlations ``[C, nb, T']`` (T' = frames * stride) of
         ``x`` ``[C, T]`` with every replica, by overlap-save FFT."""
@@ -220,19 +271,96 @@ class SyncwordAcquirer(nn.Module):
         frames = self._frames(x)
         c, nf, _ = frames.shape
         f = torch.fft.fft(frames, dim=-1)  # [C, F, N]
-        prod = f[:, :, None, :] * self._replica_fft_conj()[None, None]
-        corr = torch.fft.ifft(prod, dim=-1)[..., :s]  # [C, F, nb, S]
+        rf = torch.complex(self.replica_fft_r, self.replica_fft_i)
+        corr = torch.fft.ifft(f[:, :, None, :] * rf[None, None], dim=-1)[..., :s]
         return corr.permute(0, 2, 1, 3).reshape(c, self.num_bins, nf * s)
+
+    def _frames_planes(self, x: torch.Tensor):
+        """The fused kernel's frame views of a bank ``[C, T]``: each channel
+        takes ``rows`` stride-long rows of one I/Q plane buffer (its ``F``
+        frames, the row holding the last frame's lookahead, and zero rows up
+        to a multiple of the block), so no frame's lookahead reaches the
+        next channel. Returns ``(ar, ai, br, bi, frames, rows)`` with the
+        body views ``a`` and the one-row-shifted views ``b``, each
+        ``[C*rows, S]``."""
+        n, s = self.config.fft_size, self.stride
+        c, t = x.shape
+        nf = (t - n) // s + 1
+        rows = -(-(nf + 1) // _BLOCK_FRAMES) * _BLOCK_FRAMES
+        used = min(t, rows * s)
+        planes = torch.empty(2, c * rows * s + s, dtype=torch.float32, device=x.device)
+        body = planes[:, : c * rows * s].view(2, c, rows * s)
+        body[:, :, :used] = torch.view_as_real(x[:, :used]).permute(2, 0, 1)
+        body[:, :, used:] = 0.0
+        planes[:, c * rows * s :] = 0.0
+        a = planes[:, : c * rows * s].view(2, c * rows, s)
+        b = planes[:, s:].view(2, c * rows, s)
+        return a[0], a[1], b[0], b[1], nf, rows
+
+    def _best_power_fused(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Best-bin power and bin ``[C, T']`` per sample from the K1
+        correlator (the per-bin correlations never reach device memory)."""
+        n, s = self.config.fft_size, self.stride
+        c = x.shape[0]
+        ar, ai, br, bi, nf, rows = self._frames_planes(x)
+        bp, bb = fused_best_power(
+            ar, ai, br, bi, self.replica_fft_r, self.replica_fft_i, n, _BLOCK_FRAMES
+        )
+
+        def valid(a):
+            return a.view(c, rows, n)[:, :nf, :s].reshape(c, nf * s)
+
+        return valid(bp), valid(bb)
+
+    def _corr_points(
+        self, wr: torch.Tensor, wi: torch.Tensor, bins: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Exact correlations at the candidates by direct dots,
+        ``corr[b] = sum_k conj(rep[b, k]) w[k]`` over each candidate's
+        syncword window ``wr``/``wi`` ``[..., L]``, for bins ``{b-1, b,
+        b+1}`` (clamped). Returns ``(re, im)`` at the centre bin and the
+        three powers ``[..., 3]``."""
+        nb = self.num_bins
+        b3 = torch.stack([(bins - 1).clamp(min=0), bins, (bins + 1).clamp(max=nb - 1)], dim=-1)
+        rr = self.replicas.real[b3]  # [..., 3, L]
+        ri = self.replicas.imag[b3]
+        wr, wi = wr[..., None, :], wi[..., None, :]
+        cr = (wr * rr + wi * ri).sum(dim=-1)
+        ci = (wi * rr - wr * ri).sum(dim=-1)
+        return cr[..., 1], ci[..., 1], cr * cr + ci * ci
+
+    @staticmethod
+    def _neighbour_powers(best_pow: torch.Tensor, ti: torch.Tensor):
+        """``(best_pow[ti-1], best_pow[ti+1])`` with the indices clamped to
+        the row, from one 3-sample window per candidate (K2b): the window
+        starts at ti-1 clamped to ``[0, T'-3]``, so the clamped neighbours
+        sit at offsets ``ti - start -/+ 1`` clamped to ``[0, 2]``."""
+        c, tlen = best_pow.shape
+        lo = (ti - 1).clamp(0, tlen - 3)
+        starts = lo + torch.arange(c, device=ti.device)[:, None] * tlen
+        rows = fetch_rows(best_pow.reshape(-1), starts.reshape(-1), 3).view(c, -1, 3)
+        o = (ti - lo)[..., None]
+        pa = rows.gather(2, (o - 1).clamp(min=0))[..., 0]
+        pc = rows.gather(2, (o + 1).clamp(max=2))[..., 0]
+        return pa, pc
 
     # -------------------------------------------------------------- detection
 
-    def acquire(self, x: torch.Tensor, index0: int = 0) -> Detections:
+    def acquire(
+        self,
+        x: torch.Tensor,
+        index0: int = 0,
+        fresh_lo: int | torch.Tensor | None = None,
+        fresh_hi: int | torch.Tensor | None = None,
+    ) -> Detections:
         """Detect syncwords in ``x`` complex64 ``[T]`` or ``[C, T]``.
 
         Correlations cover syncword starts in ``[0, T - sync_len]``;
         detection needs ``time_threshold`` margin on both sides. ``index0``
-        is added to the reported indices. Returns :class:`Detections` with
-        fields ``[D]`` (or ``[C, D]``)."""
+        is added to the reported indices. ``fresh_lo``/``fresh_hi``
+        restrict eligible starts to ``[fresh_lo, fresh_hi)`` before the
+        slots are chosen (:func:`chunked_peak_detect`). Returns
+        :class:`Detections` with fields ``[D]`` (or ``[C, D]``)."""
         single = x.ndim == 1
         if single:
             x = x[None]
@@ -240,22 +368,53 @@ class SyncwordAcquirer(nn.Module):
         w = cfg.time_threshold
         nb = self.num_bins
         c, t = x.shape
-        corr = self._correlate_fft(x)  # [C, nb, T']
-        power = corr.abs() ** 2
-        tlen = power.shape[-1]
-        best_pow = power.amax(dim=1)  # [C, T']
-        best_bin = power.argmax(dim=1)
+        fused = self.backend == "fused"
+        if fused:
+            best_pow, best_bin = self._best_power_fused(x)  # [C, T']
+        else:
+            corr = self._correlate_fft(x)  # [C, nb, T']
+            power = corr.abs() ** 2
+            best_pow = power.amax(dim=1)
+            best_bin = power.argmax(dim=1)
+        tlen = best_pow.shape[-1]
         top_pow, ti, overflow = chunked_peak_detect(
-            best_pow, w, cfg.max_detections, cfg.power_threshold
+            best_pow, w, cfg.max_detections, cfg.power_threshold, fresh_lo, fresh_hi
         )
         cand_valid = top_pow > 0
         b = top_pow
+        bi = best_bin.gather(1, ti).long()
+        # noise power windows [C, D, 2w + k] around the candidates, from one
+        # region fetch (K2); the fused backend takes the syncword windows
+        # from them too
+        k = len(self._noise_taps)
+        region = 2 * w + k
+        tc2 = torch.clamp(ti - w - (k - 1) // 2, 0, t - region)
+        starts = (tc2 + torch.arange(c, device=x.device)[:, None] * t).reshape(-1)
+        wnr, wni = fetch_regions(
+            x.real.contiguous().reshape(-1), x.imag.contiguous().reshape(-1),
+            starts, region,
+        )
+        wnr = wnr.view(c, -1, region)
+        wni = wni.view(c, -1, region)
         # ---------------- parameter estimation at the candidates
         bin_spacing = float(np.float32(np.pi / self.sync_len))
-        bi = best_bin.gather(1, ti)
-        flat_power = power.reshape(c, nb * tlen)
-        p_left = flat_power.gather(1, (bi - 1).clamp(min=0) * tlen + ti)
-        p_right = flat_power.gather(1, (bi + 1).clamp(max=nb - 1) * tlen + ti)
+        if fused:
+            # the kernel keeps only the best bin's power: the complex value
+            # at the peak and the adjacent bins' powers are recomputed at the
+            # candidates. A valid candidate's syncword window starts at
+            # offset ti - tc2 in [w, w + (k-1)/2] of its noise region
+            # (__init__ checks that it fits); invalid slots are clamped
+            ll = self.sync_len
+            off = (ti - tc2).clamp(0, region - ll)
+            j = off[..., None] + torch.arange(ll, device=x.device)
+            cr, ci, p3 = self._corr_points(wnr.gather(2, j), wni.gather(2, j), bi)
+            p_left, p_right = p3[..., 0], p3[..., 2]
+            phase_raw = torch.atan2(ci, cr)
+        else:
+            flat_power = power.reshape(c, nb * tlen)
+            p_left = flat_power.gather(1, (bi - 1).clamp(min=0) * tlen + ti)
+            p_right = flat_power.gather(1, (bi + 1).clamp(max=nb - 1) * tlen + ti)
+            phase_raw = torch.angle(corr.reshape(c, nb * tlen).gather(1, bi * tlen + ti))
         interior = (bi > 0) & (bi < nb - 1)
         denom_f = 2.0 * (2.0 * b - (p_left + p_right))
         quad = torch.clamp(
@@ -263,8 +422,7 @@ class SyncwordAcquirer(nn.Module):
         )
         delta_freq = torch.where(interior, quad * bin_spacing, 0.0)
         freq = (bi - cfg.freq_bins).to(torch.float32) * bin_spacing + delta_freq
-        corr_pt = corr.reshape(c, nb * tlen).gather(1, bi * tlen + ti)
-        phase = torch.angle(corr_pt) - delta_freq * 0.5 * float(self.sync_len)
+        phase = phase_raw - delta_freq * 0.5 * float(self.sync_len)
         phase = torch.where(phase >= PI, phase - TWO_PI, phase)
         phase = torch.where(phase < -PI, phase + TWO_PI, phase)
         # power peak interpolation b + (c-a)^2 / (16 (b - (a+c)/2))
@@ -277,27 +435,18 @@ class SyncwordAcquirer(nn.Module):
         )
         self_corr = self.self_corr.to(torch.float32)
         amplitude = torch.sqrt(torch.clamp(p_interp, min=0.0)) / self_corr
-        # time interpolation from the neighbour samples' best-bin powers
-        pa = best_pow.gather(1, (ti - 1).clamp(min=0))
-        pc = best_pow.gather(1, (ti + 1).clamp(max=tlen - 1))
+        # time interpolation from the neighbour samples' best-bin powers,
+        # indices clamped on both backends (the JAX fused path reads 0.0
+        # past the padding instead; only slots pos_ok excludes get there)
+        pa, pc = self._neighbour_powers(best_pow, ti)
         denom_t = 2.0 * (2.0 * b - (pa + pc))
         time_est = torch.clamp(
             (pc - pa) / torch.where(denom_t == 0, 1.0, denom_t), -0.5, 0.5
         )
         # noise power: mean power of the out-of-band (high-pass) component
         # in the CFAR window around each candidate, scaled to full-band
-        # complex noise power; the windows come from one region fetch (K2)
-        k = self.noise_filter.shape[0]
-        region = 2 * w + k
-        tc2 = torch.clamp(ti - w - (k - 1) // 2, 0, t - region)
-        starts = (tc2 + torch.arange(c, device=x.device)[:, None] * t).reshape(-1)
-        wnr, wni = fetch_regions(
-            x.real.contiguous().reshape(-1), x.imag.contiguous().reshape(-1),
-            starts, region,
-        )
-        wnr = wnr.view(c, -1, region)
-        wni = wni.view(c, -1, region)
-        h_rev = self.noise_filter.flip(0).tolist()
+        # complex noise power
+        h_rev = self._noise_taps
         win = 2 * w + 1
         hp_r = h_rev[0] * wnr[..., 0:win]
         hp_i = h_rev[0] * wni[..., 0:win]
@@ -324,7 +473,7 @@ class SyncwordAcquirer(nn.Module):
             a = a.gather(1, order)
             return a[0] if single else a
 
-        det = Detections(
+        return Detections(
             index=sel(ti + index0),
             valid=sel(cand_valid),
             amplitude=sel(amplitude),
@@ -336,4 +485,3 @@ class SyncwordAcquirer(nn.Module):
             esn0_db=sel(esn0),
             overflow=overflow[0] if single else overflow,
         )
-        return det

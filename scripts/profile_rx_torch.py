@@ -44,7 +44,7 @@ def main() -> int:
     dev = torch.device("cuda")
     step, (x,) = bank_entry(dev, channels=args.channels)
     rx = step.__self__
-    samples, _ = bench_signal(BENCH_BLOCK, args.channels)
+    samples, _, _ = bench_signal(BENCH_BLOCK, args.channels)
     x[:, rx.front_pad : rx.front_pad + BENCH_BLOCK] = torch.from_numpy(samples).to(dev)
 
     def one_step():
@@ -95,7 +95,8 @@ def main() -> int:
     n = args.steps
     print(f"card: {card}; {n} steps of {args.channels} ch x {BENCH_BLOCK} samples")
     print(f"wall {plain_wall_ms / n:.3f} ms/step unprofiled, {wall_ms / n:.3f} profiled; "
-          f"device busy {busy_ms / n:.3f} ms/step; idle share {1 - busy_ms / plain_wall_ms:.3f} "
+          f"device busy {busy_ms / n:.3f} ms/step in {len(kernels) / n:.0f} kernels; "
+          f"idle share {1 - busy_ms / plain_wall_ms:.3f} "
           f"of the unprofiled wall, {1 - busy_ms / wall_ms:.3f} of the profiled")
     for name in stage_span:
         print(f"  {name:16s} device span {stage_span[name] / n:.3f} ms/step, "

@@ -88,3 +88,33 @@ def test_ldpc_bit_exact(dev):
     total = ldpc_totals(llr, cv, ve)
     assert _build.launch_counts()["ldpc"] == before + 1
     assert torch.equal(total, ldpc.ldpc_totals_plain(llr, cv, ve))
+
+
+@pytest.mark.parametrize("n,fpad,nb", [(2048, 48, 9), (4096, 32, 9), (8192, 16, 3)])
+def test_correlate_matches_plain(dev, n, fpad, nb):
+    from gr4_packet_modem_tpu_torch.ops.acquire_cuda import fused_best_power, fused_best_power_plain
+
+    g = torch.Generator(device=dev).manual_seed(n)
+    s = n - 296
+    x = torch.randn(2, (fpad + 1) * s, generator=g, device=dev)
+    views = (x[0, : fpad * s].view(fpad, s), x[1, : fpad * s].view(fpad, s),
+             x[0, s:].view(fpad, s), x[1, s:].view(fpad, s))
+    rf = torch.randn(2, nb, n, generator=g, device=dev)
+    before = _build.launch_counts()["correlate"]
+    kp, kb = fused_best_power(*views, rf[0], rf[1], n)
+    assert _build.launch_counts()["correlate"] == before + 1
+    pp, pb = fused_best_power_plain(*views, rf[0], rf[1], n)
+    torch.testing.assert_close(kp, pp, rtol=1e-4, atol=1e-5 * pp.max().item())
+    assert (kb == pb).float().mean().item() >= 0.999
+
+
+def test_fetch_rows_bit_exact(dev):
+    from gr4_packet_modem_tpu_torch.ops.fetch_cuda import fetch_rows, fetch_rows_plain
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    t, d = 100_000, 37
+    x = torch.randn(t, generator=g, device=dev)
+    for r in (3, 297, 1569):
+        starts = 2 * torch.randint(0, (t - r) // 2, (d,), generator=g, device=dev) + 1
+        starts[0], starts[1] = 0, t - r
+        assert torch.equal(fetch_rows(x, starts, r), fetch_rows_plain(x, starts, r))

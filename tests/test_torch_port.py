@@ -42,6 +42,8 @@ class _Block:
 
 sys.meta_path.insert(0, _Block())
 from gr4_packet_modem_tpu_torch.entry import entry
+import gr4_packet_modem_tpu_torch.runtime.streaming
+import gr4_packet_modem_tpu_torch.utils.cplx
 fn, (x,) = entry("cpu")
 acc, lens, data = fn(x)
 assert acc.shape == (16,) and data.shape == (16, 256), (acc.shape, data.shape)
@@ -104,6 +106,7 @@ def test_cpu_tensors_never_launch_kernels():
     fn, (x,) = entry("cpu")
     fn(x)
     step, (xb,) = bank_entry("cpu", channels=2, block=1 << 14)
+    assert step.__self__.acquirer.backend == "fused"  # K1's plain version on the CPU
     det, hdr, res, keep = step(xb)
     assert res.accepted.shape == (2 * BENCH_CONFIG.max_detections,)
     assert _build.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
@@ -123,7 +126,7 @@ def test_chip_smoke_fails_without_cuda():
     "kw",
     [
         dict(payload_carrier="vv", max_payload_len=11),  # V&V with no block
-        dict(acquisition_backend="fused"),  # the K1 correlator is not ported
+        dict(acquisition_backend="conv"),  # the conv backends are not ported
         dict(payload_carrier="pll"),
         dict(max_payload_len=0),
     ],
@@ -172,5 +175,5 @@ def test_build_targets_hopper_with_exact_costas_gains():
     for n, g in zip(names, costas_gains()):
         assert float.fromhex(defines[f"PM_COSTAS_{n}"][:-1]) == float(np.float32(g))
     sources = {p.name for p in _build._sources()}
-    assert {"fetch.cu", "matched.cu", "costas.cu", "ldpc.cu"} <= sources
+    assert {"fetch.cu", "matched.cu", "costas.cu", "ldpc.cu", "correlate.cu"} <= sources
     assert _build.library_path().parent == _build.BUILD_DIR
