@@ -29,8 +29,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from gr4_packet_modem_tpu.utils import constants as C
-from gr4_packet_modem_tpu.utils.firdes import rx_rrc_taps
+from ..utils import constants as C
+from ..utils.firdes import rx_rrc_taps
 
 from ..ops.acquire import AcquisitionConfig, Detections, SyncwordAcquirer
 from ..ops.costas import PI, TWO_PI

@@ -16,8 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gr4_packet_modem_tpu.utils import constants as C
-from gr4_packet_modem_tpu.utils.firdes import rx_pfb_taps
+from ..utils import constants as C
+from ..utils.firdes import rx_pfb_taps
 
 from ..ops.crc import crc32_tables
 from ..ops.ldpc import decoder_tables

@@ -27,10 +27,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from gr4_packet_modem_tpu.utils import constants as C
-from gr4_packet_modem_tpu.utils.firdes import rx_rrc_taps
+from ..utils import constants as C
+from ..utils.firdes import rx_rrc_taps
 
-from .acquire_cuda import KERNEL_FFT_SIZES, fused_best_power
+from .acquire_cuda import KERNEL_FFT_SIZES, fused_best_power, replica_table
 from .costas import PI, TWO_PI
 from .fetch_cuda import fetch_regions, fetch_rows
 
@@ -245,6 +245,13 @@ class SyncwordAcquirer(nn.Module):
         rf = torch.fft.fft(rep, dim=-1).conj()
         self.register_buffer("replica_fft_r", rf.real.contiguous(), persistent=False)
         self.register_buffer("replica_fft_i", rf.imag.contiguous(), persistent=False)
+        # the same spectra in the fused kernel's layout, built once here
+        self.register_buffer(
+            "replica_table",
+            replica_table(self.replica_fft_r, self.replica_fft_i, self.config.fft_size)
+            if self.backend == "fused" and self.config.fft_size in KERNEL_FFT_SIZES else None,
+            persistent=False,
+        )
         self._noise_taps = self.noise_filter.flip(0).tolist()
 
     # ------------------------------------------------------------ correlation
@@ -304,7 +311,8 @@ class SyncwordAcquirer(nn.Module):
         c = x.shape[0]
         ar, ai, br, bi, nf, rows = self._frames_planes(x)
         bp, bb = fused_best_power(
-            ar, ai, br, bi, self.replica_fft_r, self.replica_fft_i, n, _BLOCK_FRAMES
+            ar, ai, br, bi, self.replica_fft_r, self.replica_fft_i, n, _BLOCK_FRAMES,
+            table=self.replica_table,
         )
 
         def valid(a):

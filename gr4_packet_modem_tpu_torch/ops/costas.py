@@ -15,7 +15,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from gr4_packet_modem_tpu.utils import constants as C
+from ..utils import constants as C
 
 __all__ = [
     "costas_coefficients", "costas_gains", "costas_segments", "costas_run",

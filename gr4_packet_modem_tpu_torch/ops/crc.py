@@ -20,7 +20,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from gr4_packet_modem_tpu.utils import constants as C
+from ..utils import constants as C
 
 __all__ = ["crc32_tables", "crc32_compute"]
 

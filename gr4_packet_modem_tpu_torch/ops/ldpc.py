@@ -18,7 +18,7 @@ from importlib import resources
 import numpy as np
 import torch
 
-from gr4_packet_modem_tpu.utils import constants as C
+from ..utils import constants as C
 
 __all__ = [
     "load_parity_check", "decoder_tables", "edge_tables",
@@ -29,8 +29,8 @@ __all__ = [
 @lru_cache(maxsize=1)
 def load_parity_check() -> np.ndarray:
     """Parity-check matrix H ``[96, 128]`` parsed from the alist data file
-    of the JAX package."""
-    alist = resources.files("gr4_packet_modem_tpu") / "data" / "header_ldpc.alist"
+    in this package's ``data/``."""
+    alist = resources.files("gr4_packet_modem_tpu_torch.data") / "header_ldpc.alist"
     lines = [ln for ln in alist.read_text().split("\n") if ln.strip()]
     n, m = map(int, lines[0].split())
     h = np.zeros((m, n), dtype=np.uint8)

@@ -6,6 +6,10 @@ time-reversed taps and decimate by ``sps``,
 ``out[d, s] = sum_k z[d, sps*s + k] * taps[d, k]``, reading zeros past the
 region's end. :func:`matched_filter` launches the kernel for CUDA tensors
 and runs :func:`matched_filter_plain` for CPU tensors.
+
+The kernel sums each output over the phases ``p < sps`` and, within a
+phase, over ``q`` (tap ``k = sps*q + p``); ``tests/test_torch_kernel_models.py``
+holds a numpy model of that order against the plain version.
 """
 
 from __future__ import annotations
@@ -58,8 +62,8 @@ def matched_filter(
     for t in (zr, zi, taps):
         if not t.is_contiguous():
             raise ValueError("matched_filter needs contiguous tensors")
-    if (num_syms + 127) // 128 > 65535:
-        raise ValueError(f"num_syms={num_syms} exceeds the kernel's grid")
+    if d * -(-num_syms // 9) > 2**31 - 1:
+        raise ValueError(f"D={d} x num_syms={num_syms} exceeds the kernel's grid")
     outr = zr.new_empty(d, num_syms)
     outi = zr.new_empty(d, num_syms)
     if d == 0:

@@ -13,7 +13,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from gr4_packet_modem_tpu.utils.lfsr import additive_scrambler_keystream
+from ..utils.lfsr import additive_scrambler_keystream
 
 __all__ = ["keystream", "keystream_np"]
 

@@ -27,7 +27,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--channels", type=int, default=64)
     args = ap.parse_args()
-    sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+    sys.path.insert(0, ROOT)
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 

@@ -7,9 +7,6 @@ where JAX is not installed:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
-import os
-import sys
-
 import numpy as np
 import pytest
 
@@ -43,13 +40,37 @@ def test_fetch_bit_exact(dev):
     assert torch.equal(kr, pr) and torch.equal(ki, pi)
 
 
-@pytest.mark.parametrize("s,short", [(192, 0), (300, 7)])
-def test_matched_filter(dev, s, short):
+@pytest.mark.parametrize(
+    "d,s,short,k,sps",
+    [
+        (130, 192, 0, 44, 4),
+        (130, 300, 7, 44, 4),  # 300 outputs: not a multiple of the 9 a thread
+        (37, 901, 43, 44, 4),  # a tail K - 1 samples short, a ragged chunk
+        (3, 5, 20, 44, 4),  # fewer outputs than a warp's
+        (1536, 192, 0, 44, 4),  # the header pass
+        (1536, 6160, 0, 44, 4),  # the payload pass
+        (50, 333, 5, 13, 2),  # sps and K read at run time
+        (20, 97, 0, 44, 3),
+    ],
+)
+def test_matched_filter(dev, d, s, short, k, sps):
     g = torch.Generator(device=dev).manual_seed(s)
-    d, k, sps = 130, 44, 4
     r = sps * (s - 1) + k - short  # short: the tail reads zeros
     zr = torch.randn(d, r, generator=g, device=dev)
     zi = torch.randn(d, r, generator=g, device=dev)
+    taps = torch.randn(d, k, generator=g, device=dev)
+    for a, b in zip(matched_filter(zr, zi, taps, sps, s), matched_filter_plain(zr, zi, taps, sps, s)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+
+
+def test_matched_filter_unaligned_rows(dev):
+    """Planes that start one float past a 16-byte boundary take the
+    scalar staging path."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    d, s, k, sps = 40, 500, 44, 4
+    r = sps * (s - 1) + k
+    z = torch.randn(2, d * r + 1, generator=g, device=dev)
+    zr, zi = z[0, 1:].view(d, r), z[1, 1:].view(d, r)
     taps = torch.randn(d, k, generator=g, device=dev)
     for a, b in zip(matched_filter(zr, zi, taps, sps, s), matched_filter_plain(zr, zi, taps, sps, s)):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
@@ -72,13 +93,12 @@ def test_costas(dev, s, offset):
 
 
 def test_ldpc_bit_exact(dev):
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import reference_impl as ref
+    from gr4_packet_modem_tpu_torch.utils.stimulus import ldpc_encode_bytes
 
     rng = np.random.default_rng(3)
     b = 300
     headers = rng.integers(0, 256, (b, 4), dtype=np.uint8)
-    cw = np.unpackbits(np.stack([ref.ldpc_encode_bytes(h)[:16] for h in headers]), axis=1)
+    cw = np.unpackbits(np.stack([ldpc_encode_bytes(h)[:16] for h in headers]), axis=1)
     sigma = np.sqrt(1.0 / (2 * 10 ** (rng.uniform(-6, 4, (b, 1)) / 10)))
     llr = (2.0 / sigma**2) * (1.0 - 2.0 * cw + sigma * rng.standard_normal(cw.shape))
     llr = torch.from_numpy(llr.astype(np.float32)).to(dev)
@@ -90,7 +110,14 @@ def test_ldpc_bit_exact(dev):
     assert torch.equal(total, ldpc.ldpc_totals_plain(llr, cv, ve))
 
 
-@pytest.mark.parametrize("n,fpad,nb", [(2048, 48, 9), (4096, 32, 9), (8192, 16, 3)])
+@pytest.mark.parametrize(
+    "n,fpad,nb",
+    [
+        (2048, 48, 9), (4096, 32, 9), (8192, 16, 3),
+        (2048, 16, 1), (2048, 16, 9),  # one block of frames
+        (2048, 5, 9), (4096, 5, 9), (4096, 7, 1), (8192, 3, 9),  # a ragged last block
+    ],
+)
 def test_correlate_matches_plain(dev, n, fpad, nb):
     from gr4_packet_modem_tpu_torch.ops.acquire_cuda import fused_best_power, fused_best_power_plain
 
@@ -101,7 +128,7 @@ def test_correlate_matches_plain(dev, n, fpad, nb):
              x[0, s:].view(fpad, s), x[1, s:].view(fpad, s))
     rf = torch.randn(2, nb, n, generator=g, device=dev)
     before = _build.launch_counts()["correlate"]
-    kp, kb = fused_best_power(*views, rf[0], rf[1], n)
+    kp, kb = fused_best_power(*views, rf[0], rf[1], n, block_frames=1)
     assert _build.launch_counts()["correlate"] == before + 1
     pp, pb = fused_best_power_plain(*views, rf[0], rf[1], n)
     torch.testing.assert_close(kp, pp, rtol=1e-4, atol=1e-5 * pp.max().item())
