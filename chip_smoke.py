@@ -5,17 +5,21 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: require CUDA, print the card's name and power limit;
 2. build: compile the CUDA kernels (``gr4_packet_modem_tpu_torch/csrc``)
-   with nvcc, one process per source, into ``build/kernels/``;
+   with nvcc, one process per source, into ``build/kernels/``, and beside
+   them, in parallel, the chain-latency probe (``csrc/probe/chain.cu``);
 3. kernels: hold each kernel against its plain PyTorch version on the card
-   at the receive chain's shapes; time the kernel, its plain version and,
-   where one PyTorch call computes the same function, that call
-   (``library_ms``: ``unfold`` and index for K2 and K2b, the depthwise
-   strided ``conv1d`` with TF32 off for K3), each as device time from
-   torch.profiler over a loop of calls with the L2 evicted before each,
-   with the host's time per call beside it where that is larger; K1 and
-   K3 in turns with their yardstick; and each kernel's bound
-   (``bound_ms``: bytes over 3.35 TB/s or float32 operations over 67
-   TFLOP/s, whichever is larger);
+   at the receive chain's shapes (K4 and K5 bit for bit); time the kernel,
+   its plain version and, where one PyTorch call computes the same
+   function, that call (``library_ms``: ``unfold`` and index for K2 and
+   K2b, the depthwise strided ``conv1d`` with TF32 off for K3), each as
+   device time from torch.profiler over a loop of calls with the L2
+   evicted before each, with the host's time per call beside it where that
+   is larger; K1 and K3 in turns with their yardstick; and each kernel's
+   bound (``bound_ms``: bytes over 3.35 TB/s or float32 operations over 67
+   TFLOP/s, whichever is larger). The recursions K4 and K5 are also timed
+   at B=32 (one warp) and given a chain floor: the cycles of their step
+   bodies run by one warp on registers, over the SM clock that
+   ``nvidia-smi`` reads;
 4. slice: ``Receiver.bank_step`` at the bench geometry (64 channels of
    2**19 samples of back-to-back 1500-byte bursts, 9 frequency bins,
    1536-byte max payload, 24 detection slots, V&V payload carrier, fused
@@ -23,7 +27,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    byte-exact, and every kernel must have been launched by that run. Then
    the rate, the split by stage and the peak device memory. The same bank
    step with fft acquisition runs second and must find the same
-   detections. Then one call of the single-channel ``entry()`` step;
+   detections; with the Costas payload carrier third, where K4 runs the
+   header and the payload pass. Then one call of the single-channel
+   ``entry()`` step;
 5. streaming: ``StreamingBank`` (64 channels, float32 and int8 wires) and
    ``StreamingReceiver`` fed whole 12-burst tiles as bench.py feeds them;
    every packet must come out exactly once, byte-exact, at its index, with
@@ -47,6 +53,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -161,6 +168,47 @@ def timed(torch, fn, reps: int = 10) -> dict:
     return {"ms": busy / 1e3 / reps, "loop_ms": loop, "host_ms": host}
 
 
+def sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    return float(out.splitlines()[0])
+
+
+def chain_floor(torch, probe, entry: str, *args) -> dict:
+    """The least time of a recursion whatever its loads do: one warp runs
+    the kernel's own step body on registers (``csrc/probe/chain.cu``,
+    entry ``entry``) and reads ``clock64()`` around the steps of one call.
+    Returns the slowest lane's ``cycles`` (second of two calls), the SM
+    clock ``nvidia-smi`` reads just after, and ``ms``, the two's ratio."""
+    cycles = torch.zeros(32, dtype=torch.int64, device="cuda")
+    sink = torch.zeros(32, device="cuda")
+    for _ in range(2):  # the first call loads the code
+        status = getattr(probe, entry)(cycles.data_ptr(), sink.data_ptr(), *args,
+                                       torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"{entry}: CUDA error {status}")
+        torch.cuda.synchronize()
+    cyc, mhz = int(cycles.max().item()), sm_clock_mhz()
+    return {"cycles": cyc, "sm_mhz": mhz, "ms": cyc / (mhz * 1e3)}
+
+
+def build_probe():
+    """Build and load the chain probe, with its entry points' argument
+    types."""
+    import ctypes
+
+    from gr4_packet_modem_tpu_torch.ops import _build
+
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib = _build.build_single(_build.CSRC / "probe" / "chain.cu")
+    # cycles, sink, steps, offset, stream
+    lib.pm_costas_chain.argtypes = [P, P, I, I, P]
+    # cycles, sink, llrs, chk_vars, var_edges, m, dmax, n, vdeg, iters, alpha, stream
+    lib.pm_ldpc_chain.argtypes = [P, P, P, P, P, I, I, I, I, I, F, P]
+    return lib
+
+
 # -------------------------------------------------------------- stimulus
 
 
@@ -194,11 +242,13 @@ def bench_signal(block: int, channels: int):
 # ---------------------------------------------------------------- kernels
 
 
-def kernel_checks(torch, card: str) -> dict:
+def kernel_checks(torch, card: str, probe) -> dict:
     """Each kernel against its plain version at the chain's shapes; the
     time of each, of its plain version and, where one PyTorch call computes
     the same function, of that call; and each kernel's bound at its shape.
-    Launches here are comparisons: they do not count as the main path's."""
+    K4 and K5 also at B=32 and with their chain floors (``probe``: the
+    library of ``build_probe``). Launches here are comparisons: they do not
+    count as the main path's."""
     import torch.nn.functional as F
 
     from gr4_packet_modem_tpu_torch.entry import BENCH_BLOCK, BENCH_CHANNELS, BENCH_CONFIG
@@ -212,7 +262,7 @@ def kernel_checks(torch, card: str) -> dict:
     )
     from gr4_packet_modem_tpu_torch.ops.ldpc_cuda import ldpc_totals
     from gr4_packet_modem_tpu_torch.ops.matched_cuda import matched_filter, matched_filter_plain
-    from gr4_packet_modem_tpu_torch.utils.stimulus import ldpc_encode_bytes
+    from gr4_packet_modem_tpu_torch.utils.stimulus import costas_symbols, ldpc_encode_bytes
 
     # the yardstick convolution in full float32, as the kernel computes
     torch.backends.cudnn.allow_tf32 = False
@@ -221,7 +271,7 @@ def kernel_checks(torch, card: str) -> dict:
     d = 1536  # 64 channels x 24 detection slots
     res, rows = {}, []
 
-    def record(name, shape, err, k, plain, lib, nbytes, ops, main):
+    def record(name, shape, err, k, plain, lib, nbytes, ops, main, extra=None):
         bms, by = bound(nbytes, ops)
         host = f" (host {k['host_ms']:.4f} ms/call, loop {k['loop_ms']:.4f})" \
             if k["host_ms"] > k["ms"] or k["loop_ms"] > 1.2 * k["ms"] else ""
@@ -229,12 +279,22 @@ def kernel_checks(torch, card: str) -> dict:
         log(f"  {name:10s} {shape:34s} max_abs_err={err:.3e} kernel={k['ms']:.4f} ms{host} "
             f"plain={plain:.4f} ms library={libs} bound={bms:.4f} ms ({by}, "
             f"{100 * bms / k['ms']:.1f} % of it)  [{card}]")
+        extra = extra or {}
         rows.append({"name": name, "shape": shape, "max_abs_err": err, **k, "plain_ms": plain,
-                     "library_ms": lib, "bound_ms": bms, "bound_by": by})
+                     "library_ms": lib, "bound_ms": bms, "bound_by": by, **extra})
         r = res.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if main:
-            r.update(ms=k["ms"], plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by)
+            r.update(ms=k["ms"], plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by, **extra)
+
+    def recursion(name, shape, k, fn32, floor):
+        """A recursion's time at B=32 (one warp) and its chain floor."""
+        k32 = timed(torch, fn32)["ms"]
+        log(f"  {name} {shape}: B=32 {k32:.4f} ms against B={d} {k['ms']:.4f} ms; chain floor "
+            f"{floor['ms']:.4f} ms ({floor['cycles']} cycles at {floor['sm_mhz']:.0f} MHz, "
+            f"{100 * floor['ms'] / k['ms']:.1f} % of the B={d} time)  [{card}]")
+        return {"b32_ms": k32, "chain_floor_ms": floor["ms"], "chain_cycles": floor["cycles"],
+                "sm_mhz": floor["sm_mhz"]}
 
     # K2 region fetch: the flattened 64-channel bank plane, odd starts
     t = 64 * 553_396
@@ -357,40 +417,40 @@ def kernel_checks(torch, card: str) -> dict:
 
     # K4 Costas loop: a locked loop on noisy QPSK with residual CFO (the
     # regime the receiver runs it in), header and payload geometries
-    rng = np.random.default_rng(7)
     for s, offset in ((192, 0), (6160, 192)):
-        bits = rng.integers(0, 4, (d, s))
-        clean = np.exp(1j * (np.pi / 4 + bits * np.pi / 2))
-        if offset == 0:
-            clean[:, :64] = 1.0  # wiped-off syncword: pure pilot
-        cfo = 2e-4 * rng.standard_normal((d, 1))
-        sym = clean * np.exp(1j * (0.05 * rng.standard_normal((d, 1)) + cfo * np.arange(s)))
-        sym = sym + 0.05 * (rng.standard_normal((d, s)) + 1j * rng.standard_normal((d, s)))
-        sym = torch.from_numpy(sym.astype(np.complex64)).to(dev)
-        ph0 = torch.from_numpy(rng.uniform(-0.1, 0.1, d).astype(np.float32)).to(dev)
-        fr0 = torch.zeros(d, device=dev)
+        sym, ph0, fr0 = (torch.from_numpy(a).to(dev) for a in costas_symbols(d, s, offset, seed=7 + s))
         ko, kph, kfr = costas_track(sym, ph0, fr0, offset=offset)
         torch.cuda.synchronize()
         po, pph, pfr = costas_track_plain(sym, ph0, fr0, offset=offset)
-        q = slice(64 - offset if offset < 64 else 0, None)  # QPSK symbols
+        check(ko.is_contiguous() and po.is_contiguous(), f"costas S={s}: output not a contiguous [B, S]")
+        q = slice(max(0, 64 - offset), None)  # QPSK symbols
         for a, b in ((ko.real, po.real), (ko.imag, po.imag)):
             check(torch.equal(a[:, q] > 0, b[:, q] > 0), f"costas S={s}: hard decisions differ")
         err = (ko - po).abs().max().item()
         ph_err = (kph - pph).abs().max().item()
         if s == 192:
             check(err <= 1e-5 and ph_err <= 1e-5, f"costas S=192: err {err}, ph_end err {ph_err} > 1e-5")
-        log(f"  costas S={s}: symbols within {err:.3e}, ph_end within {ph_err:.3e}, "
+        same = torch.equal(ko, po) and torch.equal(kph, pph) and torch.equal(kfr, pfr)
+        log(f"  costas S={s}: bit-identical to the plain version (symbols, ph_end, fr_end): {same}; "
+            f"symbols within {err:.3e}, ph_end within {ph_err:.3e}, "
             f"fr_end within {(kfr - pfr).abs().max().item():.3e}")
+        check(same, f"costas S={s}: not bit-identical to the plain version")
         k = timed(torch, lambda: costas_track(sym, ph0, fr0, offset=offset))
         # the plain loop issues ~20 small kernels a symbol: its loop time
         pms = event_ms(torch, lambda: costas_track_plain(sym, ph0, fr0, offset=offset),
                        reps=3 if s == 192 else 1)
+        shape = f"B={d} S={s} offset={offset}"
+        extra = recursion("costas", shape, k,
+                          lambda: costas_track(sym[:32], ph0[:32], fr0[:32], offset=offset),
+                          chain_floor(torch, probe, "pm_costas_chain", s, offset))
         # a symbol: derotation 6, error 2, loop update 5, wraps 2, and the
         # accurate cosf and sinf counted as 20 operations each
-        record("costas", f"B={d} S={s} offset={offset}", err, k, pms, None,
-               2 * d * s * 8 + 4 * d * 4, d * s * (15 + 40), s == 192)
+        record("costas", shape, err, k, pms, None,
+               2 * d * s * 8 + 4 * d * 4, d * s * (15 + 40), s == 192, extra)
+        del sym, ko, po
 
     # K5 LDPC BP: noisy codewords from -6 to +4 dB, some not converging
+    rng = np.random.default_rng(7)
     headers = rng.integers(0, 256, (d, 4), dtype=np.uint8)
     coded = np.stack([ldpc_encode_bytes(h)[:16] for h in headers])
     cw = np.unpackbits(coded, axis=1)  # [d, 128]
@@ -413,14 +473,20 @@ def kernel_checks(torch, card: str) -> dict:
     check(0.0 < frac < 1.0, f"ldpc: every codeword converged or none did ({frac})")
     correct = (kbits.cpu().numpy() == cw[:, :32]).all(axis=1).mean()
     log(f"  ldpc: ok fraction {frac:.3f}, headers exact {correct:.3f}")
+    check(torch.equal(ktot, ptot), "ldpc: totals not bit-identical to the plain version")
     err = (ktot - ptot).abs().max().item()
     k = timed(torch, lambda: ldpc_totals(llr, cv, ve))
     pms = timed(torch, lambda: ldpc.ldpc_totals_plain(llr, cv, ve), reps=3)["ms"]
-    iters = 25
+    iters, alpha = 25, float(np.float32(0.75))
+    shape = f"B={d} iters={iters}"
+    (m, dmax), (n, vdeg) = cv.shape, ve.shape
+    floor = chain_floor(torch, probe, "pm_ldpc_chain", llr.data_ptr(), cv.data_ptr(),
+                        ve.data_ptr(), m, dmax, n, vdeg, iters, alpha)
+    extra = recursion("ldpc", shape, k, lambda: ldpc_totals(llr[:32], cv, ve), floor)
     # an edge an iteration: the variable sum's add; the check's subtract,
     # sign, magnitude, two minima and the scaled message's two products
-    record("ldpc", f"B={d} iters={iters}", err, k, pms, None,
-           2 * d * 128 * 4, d * iters * edges * 8, True)
+    record("ldpc", shape, err, k, pms, None,
+           2 * d * 128 * 4, d * iters * edges * 8, True, extra)
     _flush.clear()  # so the bank step's peak device memory leaves it out
     res["rows"] = rows
     return res
@@ -532,6 +598,22 @@ def slice_run(torch, card: str) -> dict:
     for f in ("index", "freq_bin"):
         check(torch.equal(getattr(a, f)[v], getattr(b, f)[v]), f"fused and fft detections differ in {f}")
     log(f"  fused and fft detections equal on all {int(v.sum())} valid rows (index, valid, freq_bin)")
+    del rx_fft
+
+    # the Costas payload carrier (RxConfig's own default) on the same bank,
+    # fused acquisition, one plain batch: K4 runs the header and the
+    # payload pass
+    rx_costas = Receiver(dataclasses.replace(BENCH_CONFIG, payload_carrier="costas"), dev)
+    costas = bank_run(torch, card, rx_costas, x, expected, "costas")
+    costas.pop("det")
+    check(costas["launches"]["costas"] == 2,
+          f"costas carrier: K4 launched {costas['launches']['costas']} times in one step, not 2")
+    for k in _build.KERNELS:
+        check(costas["launches"][k] > 0, f"kernel {k} was not launched by the Costas carrier's step")
+    log(f"  costas carrier against V&V: +payload {costas['stages_ms']['+payload']:.2f} against "
+        f"{fused['stages_ms']['+payload']:.2f} ms, rate {costas['rate_sps']:.4e} against "
+        f"{fused['rate_sps']:.4e} samples/s  [{card}]")
+    del rx_costas
 
     # the single-channel entry() step once, on three bursts it can decode
     from gr4_packet_modem_tpu_torch.utils.stimulus import burst_samples
@@ -546,7 +628,7 @@ def slice_run(torch, card: str) -> dict:
     check(len(got) == len(pays) and all(np.array_equal(g, p) for g, p in zip(got, pays)),
           f"entry(): decoded {len(got)} of {len(pays)} packets")
     log(f"  entry(): decoded {len(got)}/{len(pays)} packets byte-exact")
-    return {"fused": fused, "fft": fft}
+    return {"fused": fused, "fft": fft, "costas": costas}
 
 
 # -------------------------------------------------------------- streaming
@@ -665,16 +747,19 @@ def main() -> int:
     from gr4_packet_modem_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    path = _build.build()
+    with ThreadPoolExecutor(2) as pool:
+        probe_job = pool.submit(build_probe)
+        path = _build.build()
+        probe = probe_job.result()
     _build.library()
-    log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(path, ROOT)}")
+    log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(path, ROOT)} and the chain probe")
     for line in path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             log(f"  {line.strip()}")
 
     # phase 3: kernels vs plain versions
     log("kernels:")
-    kres = kernel_checks(torch, card)
+    kres = kernel_checks(torch, card, probe)
 
     # phase 4: the slice
     log("slice:")

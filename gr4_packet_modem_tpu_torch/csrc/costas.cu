@@ -1,7 +1,6 @@
 // K4 Costas loop: the exact per-packet carrier-recovery recursion over the
-// receiver's positional schedule. For each symbol: rotate by -phase, take the
-// pilot error for global symbols below 64 and the QPSK decision error after,
-// update freq += K2*e and phase += K1*e + freq, wrap phase to [-pi, pi).
+// receiver's positional schedule (costas_step.cuh), from packet symbol
+// `offset` on.
 //
 // Replaces gr4_packet_modem_tpu/ops/costas_pallas.py::costas_track_pallas
 // (kernel _make_kernel). The TPU kernel advanced 1024 packets per step in one
@@ -9,63 +8,111 @@
 // memory; here each packet is one thread and the whole recursion runs in its
 // registers.
 //
-// Bound: latency of the sequential dependency chain (cosf/sinf and about 15
-// dependent operations per symbol); the arithmetic and the 16 bytes moved per
-// symbol are small. Design: one thread per packet, symbols in sequence, and
-// the batch on the fast axis: the symbols arrive as an [S, B] complex plane so
-// the 32 threads of a warp load and store 32 neighbouring packets' symbol s
-// in one coalesced access. The gains are compile-time constants
-// (PM_COSTAS_K*, from costas_coefficients via the build). Products and sums
-// use explicit round-to-nearest intrinsics so nvcc does not contract them into
-// fused multiply-adds, and cosf/sinf are the accurate versions (no fast
-// math): the feedback loop would amplify any extra rounding difference from
-// the reference.
+// Bound: the latency of the sequential dependency chain (cosf/sinf and
+// about 15 dependent operations per symbol), not the 16 bytes a symbol
+// moves nor its arithmetic. So nothing else may sit on that chain: a load
+// from device memory issued in the step that needs it costs several hundred
+// cycles. Design: one warp per 32 packets, reading the [B, S] symbols as
+// they lie. The warp stages tiles of 32 symbols x 32 packets in shared
+// memory with cp.async, kStages tiles in a ring, so the tiles after the
+// one being stepped through are in flight while it runs; each row of a
+// tile is one coalesced 256-byte read. A thread steps through its packet's
+// row (rows padded by one symbol: the 32 threads' reads of one column hit
+// distinct banks), writes each corrected symbol over its input, and the
+// warp writes the tile back to the [B, S] output, coalesced along S. Ragged
+// edges (B not a multiple of 32, S not a multiple of 32) are masked; the
+// schedule's switch points fall anywhere in a tile.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#ifndef PM_COSTAS_K1A
-#error "PM_COSTAS_K1A..K2C must be defined by the build (ops/_build.py)"
-#endif
+#include "costas_step.cuh"
 
 namespace {
 
-constexpr int kSyncLen = 64;   // PILOT segment (wiped-off syncword)
-constexpr int kHdrEnd = 192;   // syncword + 128 header symbols
-constexpr float kPi = 3.14159265358979323846f;
-constexpr float kTwoPi = 2.0f * kPi;
+constexpr int kWarp = 32;
+constexpr int kTile = 32;       // symbols a tile: one per lane in the copies
+constexpr int kStages = 4;      // tiles in the ring
+constexpr int kRow = kTile + 1;  // padded row, in float2
 
-__global__ void costas_kernel(const float2* __restrict__ sym,
-                              float2* __restrict__ out,
-                              const float* __restrict__ ph0,
-                              const float* __restrict__ fr0,
-                              float* __restrict__ ph_end,
-                              float* __restrict__ fr_end, int b, int s,
-                              int offset) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= b) return;
-  float ph = ph0[p];
-  float fr = fr0[p];
-  for (int i = 0; i < s; ++i) {
-    const int g = i + offset;
-    const bool pilot = g < kSyncLen;
-    const float k1 = pilot ? PM_COSTAS_K1A : (g < kHdrEnd ? PM_COSTAS_K1B : PM_COSTAS_K1C);
-    const float k2 = pilot ? PM_COSTAS_K2A : (g < kHdrEnd ? PM_COSTAS_K2B : PM_COSTAS_K2C);
-    const int64_t at = static_cast<int64_t>(i) * b + p;
-    const float2 x = sym[at];
-    const float c = cosf(ph);
-    const float sn = sinf(ph);
-    const float zr = __fadd_rn(__fmul_rn(x.x, c), __fmul_rn(x.y, sn));
-    const float zi = __fsub_rn(__fmul_rn(x.y, c), __fmul_rn(x.x, sn));
-    const float e_qpsk = __fadd_rn(zr > 0.0f ? zi : -zi, zi > 0.0f ? -zr : zr);
-    const float e = pilot ? zi : e_qpsk;
-    fr = __fadd_rn(fr, __fmul_rn(k2, e));
-    ph = __fadd_rn(__fadd_rn(ph, __fmul_rn(k1, e)), fr);
-    if (ph >= kPi) ph = __fsub_rn(ph, kTwoPi);
-    if (ph < -kPi) ph = __fadd_rn(ph, kTwoPi);
-    out[at] = make_float2(zr, zi);
+using Tile = float2[kWarp][kRow];
+
+__device__ __forceinline__ void copy_async(float2* dst, const float2* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wait_pending() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [0, rows) of the warp's packets, symbols [i0, i0 + cols): lane l
+// copies column l of every row.
+__device__ __forceinline__ void load_tile(Tile& t, const float2* sym,
+                                          int64_t row0, int rows, int64_t s,
+                                          int i0, int cols, int lane) {
+  if (lane >= cols) return;
+#pragma unroll 8
+  for (int r = 0; r < rows; ++r)
+    copy_async(&t[r][lane], sym + (row0 + r) * s + i0 + lane);
+}
+
+__device__ __forceinline__ void store_tile(const Tile& t, float2* out,
+                                           int64_t row0, int rows, int64_t s,
+                                           int i0, int cols, int lane) {
+  if (lane >= cols) return;
+#pragma unroll 8
+  for (int r = 0; r < rows; ++r) out[(row0 + r) * s + i0 + lane] = t[r][lane];
+}
+
+__global__ void __launch_bounds__(kWarp)
+    costas_kernel(const float2* __restrict__ sym, float2* __restrict__ out,
+                  const float* __restrict__ ph0, const float* __restrict__ fr0,
+                  float* __restrict__ ph_end, float* __restrict__ fr_end, int b,
+                  int s, int offset) {
+  __shared__ __align__(16) Tile ring[kStages];
+  const int lane = threadIdx.x;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kWarp;
+  const int rows = min(kWarp, static_cast<int>(b - row0));
+  const bool mine = lane < rows;
+  float ph = mine ? ph0[row0 + lane] : 0.0f;
+  float fr = mine ? fr0[row0 + lane] : 0.0f;
+  const int tiles = (s + kTile - 1) / kTile;
+  // one commit group per tile, empty past the end, so that waiting for
+  // all but the kStages - 1 newest groups always means "this tile is in"
+#pragma unroll
+  for (int t = 0; t < kStages; ++t) {
+    if (t < tiles)
+      load_tile(ring[t], sym, row0, rows, s, t * kTile, min(kTile, s - t * kTile), lane);
+    commit();
   }
-  ph_end[p] = ph;
-  fr_end[p] = fr;
+  for (int t = 0; t < tiles; ++t) {
+    Tile& buf = ring[t % kStages];
+    const int i0 = t * kTile;
+    const int cols = min(kTile, s - i0);
+    wait_pending<kStages - 1>();
+    __syncwarp();
+    if (mine) {
+      for (int j = 0; j < cols; ++j)
+        buf[lane][j] = pm_costas::step(buf[lane][j], offset + i0 + j, ph, fr);
+    }
+    __syncwarp();
+    store_tile(buf, out, row0, rows, s, i0, cols, lane);
+    __syncwarp();
+    const int next = t + kStages;
+    if (next < tiles)
+      load_tile(buf, sym, row0, rows, s, next * kTile, min(kTile, s - next * kTile), lane);
+    commit();
+  }
+  if (mine) {
+    ph_end[row0 + lane] = ph;
+    fr_end[row0 + lane] = fr;
+  }
 }
 
 }  // namespace
@@ -73,9 +120,9 @@ __global__ void costas_kernel(const float2* __restrict__ sym,
 extern "C" int pm_costas_track(const void* sym, void* out, const void* ph0,
                                const void* fr0, void* ph_end, void* fr_end,
                                int b, int s, int offset, void* stream) {
-  // one warp per block spreads B = 1536 packets over 48 SMs instead of 12
-  constexpr int kThreads = 32;
-  costas_kernel<<<(b + kThreads - 1) / kThreads, kThreads, 0,
+  // one warp a block: B = 1536 packets spread over 48 SMs, each chain
+  // alone on its scheduler
+  costas_kernel<<<(b + kWarp - 1) / kWarp, kWarp, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(sym), static_cast<float2*>(out),
       static_cast<const float*>(ph0), static_cast<const float*>(fr0),

@@ -333,7 +333,7 @@ class Receiver(nn.Module):
             syms, phase0.contiguous(), torch.zeros_like(phase0), offset=0
         )
         hdr_syms = corrected[:, C.SYNCWORD_LEN :]  # [D, 128]
-        llrs = torch.stack([hdr_syms.real, hdr_syms.imag], dim=-1).reshape(
+        llrs = torch.view_as_real(hdr_syms).reshape(
             hdr_syms.shape[0], -1
         ) * self.llr_scale
         llrs = torch.where(self.ks_header, -llrs, llrs)
@@ -460,7 +460,7 @@ class Receiver(nn.Module):
             corrected, _, _ = costas_track(
                 syms, hdr.phase, hdr.freq, offset=_HEADER_REGION_SYMS
             )
-        llrs = torch.stack([corrected.real, corrected.imag], dim=-1).reshape(
+        llrs = torch.view_as_real(corrected).reshape(
             corrected.shape[0], -1
         ) * self.llr_scale  # [D, 2*s_pay]
         llrs = torch.where(self.ks_payload, -llrs, llrs)

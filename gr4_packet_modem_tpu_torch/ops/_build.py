@@ -152,6 +152,30 @@ def build() -> Path:
     return path
 
 
+def build_single(source: Path) -> ctypes.CDLL:
+    """Compile one CUDA source on its own, with the library's flags, into
+    ``build/kernels/`` and load it: a probe (``csrc/probe/``) or another
+    version of a kernel, outside the port's library. Its entry points'
+    argument types are the caller's to set; its launches are not counted."""
+    source = Path(source).resolve()
+    h = hashlib.sha256(" ".join(_flags()).encode())
+    for src in [source, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.read_bytes())
+    path = BUILD_DIR / f"{source.stem}_{h.hexdigest()[:16]}.so"
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        job = subprocess.run(
+            [_nvcc(), *_flags(), "-I", str(CSRC), "-shared", "-o", str(tmp), str(source)],
+            capture_output=True, text=True,
+        )
+        if job.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source} ({job.returncode}):\n{job.stdout}\n{job.stderr}")
+        path.with_suffix(".log").write_text(job.stdout + job.stderr)
+        os.replace(tmp, path)
+    return ctypes.CDLL(str(path))
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed)."""
     global _lib

@@ -99,19 +99,19 @@ def costas_run(
 
     symbols: complex64 ``[B, S]``; phase0/freq0: float32 ``[B]`` initial
     loop state. const_ids/k1/k2: ``[S]`` per-symbol schedule shared by the
-    batch. Returns ``(corrected [B, S], phase_end [B], freq_end [B])``.
+    batch. Returns ``(corrected [B, S] contiguous, phase_end [B],
+    freq_end [B])``.
     """
-    sym_re = symbols.real.transpose(0, 1)  # [S, B]
-    sym_im = symbols.imag.transpose(0, 1)
+    sym_re, sym_im = symbols.real, symbols.imag
     ids = const_ids.tolist()
     g1s = k1.to(torch.float32).tolist()
     g2s = k2.to(torch.float32).tolist()
     phase = phase0.to(torch.float32)
     freq = freq0.to(torch.float32)
-    out_re = torch.empty_like(sym_re)
-    out_im = torch.empty_like(sym_im)
-    for s in range(sym_re.shape[0]):
-        xr, xi = sym_re[s], sym_im[s]
+    out_re = torch.empty(symbols.shape, dtype=torch.float32, device=symbols.device)
+    out_im = torch.empty_like(out_re)
+    for s in range(sym_re.shape[1]):
+        xr, xi = sym_re[:, s], sym_im[:, s]
         c, sn = torch.cos(phase), torch.sin(phase)
         zr = xr * c + xi * sn
         zi = xi * c - xr * sn
@@ -125,7 +125,6 @@ def costas_run(
         phase = phase + g1s[s] * e + freq
         phase = torch.where(phase >= PI, phase - TWO_PI, phase)
         phase = torch.where(phase < -PI, phase + TWO_PI, phase)
-        out_re[s] = zr
-        out_im[s] = zi
-    out = torch.complex(out_re.transpose(0, 1), out_im.transpose(0, 1))
-    return out, phase, freq
+        out_re[:, s] = zr
+        out_im[:, s] = zi
+    return torch.complex(out_re, out_im), phase, freq

@@ -36,8 +36,7 @@ def costas_track(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Track ``symbols`` complex64 ``[B, S]`` from loop state ``phase0``,
     ``freq0`` float32 ``[B]``. Returns ``(corrected [B, S], phase_end [B],
-    freq_end [B])``; on the card ``corrected`` is a transposed view of the
-    kernel's ``[S, B]`` output."""
+    freq_end [B])``, ``corrected`` contiguous on both routes."""
     route = kernel_route(symbols, phase0, freq0)
     if symbols.dtype != torch.complex64 or symbols.ndim != 2:
         raise ValueError(f"symbols must be complex64 [B, S], got {symbols.dtype} {tuple(symbols.shape)}")
@@ -50,18 +49,15 @@ def costas_track(
     for t in (symbols, phase0, freq0):
         if not t.is_contiguous():
             raise ValueError("costas_track needs contiguous tensors")
-    # batch on the fast axis: the kernel's warps then load neighbouring
-    # packets' symbols in one coalesced access
-    sym_t = symbols.transpose(0, 1).contiguous()  # [S, B]
-    out_t = torch.empty_like(sym_t)
+    out = torch.empty_like(symbols)
     ph_end = torch.empty_like(phase0)
     fr_end = torch.empty_like(freq0)
     if b == 0:
-        return out_t.transpose(0, 1), ph_end, fr_end
+        return out, ph_end, fr_end
     _build.launch(
         "costas", "pm_costas_track", symbols.device,
-        sym_t.data_ptr(), out_t.data_ptr(), phase0.data_ptr(),
+        symbols.data_ptr(), out.data_ptr(), phase0.data_ptr(),
         freq0.data_ptr(), ph_end.data_ptr(), fr_end.data_ptr(),
         b, s, int(offset), _build.stream_of(symbols),
     )
-    return out_t.transpose(0, 1), ph_end, fr_end
+    return out, ph_end, fr_end

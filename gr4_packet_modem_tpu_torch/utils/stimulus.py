@@ -6,6 +6,7 @@ with (``chip_smoke.py``, ``scripts/profile_rx_torch.py``): the parts of
 runs without the JAX package. It is a bench stimulus, one packet at a time
 with explicit loops, not a transmitter API. ``tests/test_torch_standalone.py``
 holds it bit for bit against ``tests/reference_impl.py``.
+:func:`costas_symbols` is the Costas loop's input for the K4 checks.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from .lfsr import additive_scrambler_keystream, glfsr_bits
 
 __all__ = [
     "ldpc_encode_bytes", "frame_bytes", "data_symbols", "burst_symbols",
-    "interp_fir", "burst_ramps", "burst_samples",
+    "interp_fir", "burst_ramps", "burst_samples", "costas_symbols",
 ]
 
 
@@ -130,3 +131,20 @@ def burst_samples(payload: np.ndarray, packet_index: int, sps: int = 4,
     samples[: lead.size] *= lead
     samples[-trail.size :] *= trail
     return samples
+
+
+def costas_symbols(b: int, s: int, offset: int, seed: int):
+    """Input of the Costas loop in the regime the receiver runs it in: ``b``
+    packets of ``s`` QPSK symbols from packet symbol ``offset`` on (the
+    syncword's, below symbol 64, wiped off to pure pilot), a small phase
+    offset and residual CFO per packet, noise at 0.05 a component. Returns
+    ``(symbols complex64 [b, s], phase0 float32 [b], freq0 float32 [b])``."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 4, (b, s))
+    clean = np.exp(1j * (np.pi / 4 + bits * np.pi / 2))
+    clean[:, : max(0, C.SYNCWORD_LEN - offset)] = 1.0
+    cfo = 2e-4 * rng.standard_normal((b, 1))
+    sym = clean * np.exp(1j * (0.05 * rng.standard_normal((b, 1)) + cfo * np.arange(s)))
+    sym = sym + 0.05 * (rng.standard_normal((b, s)) + 1j * rng.standard_normal((b, s)))
+    phase0 = rng.uniform(-0.1, 0.1, b).astype(np.float32)
+    return sym.astype(np.complex64), phase0, np.zeros(b, np.float32)

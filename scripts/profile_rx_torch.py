@@ -6,14 +6,18 @@ Runs ``Receiver.bank_step``'s stages at the bench geometry (64 channels of
 and prints: device time per stage (acquire, headers, filter, payloads), the
 top kernels by device time, and the device's busy and idle share of the
 wall time of the same steps run without the profiler (and with it). The Chrome trace goes to
-``chiprun_out/profile_rx_torch.json``.
+``chiprun_out/profile_rx_torch_<carrier>.json``.
 
-    python3 scripts/profile_rx_torch.py [--steps 3] [--channels 64]
+    python3 scripts/profile_rx_torch.py [--steps 3] [--channels 64] [--carrier vv]
+
+``--carrier costas`` runs the Costas payload carrier (K4 over the payload)
+in place of bench.py's V&V.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import subprocess
 import sys
@@ -26,14 +30,15 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--channels", type=int, default=64)
+    ap.add_argument("--carrier", choices=("vv", "costas"), default="vv")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from chip_smoke import bench_signal
-    from gr4_packet_modem_tpu_torch.entry import BENCH_BLOCK, bank_entry
-    from gr4_packet_modem_tpu_torch.models.receiver import flatten_detections
+    from gr4_packet_modem_tpu_torch.entry import BENCH_BLOCK, BENCH_CONFIG, bank_entry
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver, flatten_detections
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_rx_torch: needs a CUDA device")
@@ -42,8 +47,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
-    step, (x,) = bank_entry(dev, channels=args.channels)
-    rx = step.__self__
+    _, (x,) = bank_entry(dev, channels=args.channels)
+    rx = Receiver(dataclasses.replace(BENCH_CONFIG, payload_carrier=args.carrier), dev)
     samples, _, _ = bench_signal(BENCH_BLOCK, args.channels)
     x[:, rx.front_pad : rx.front_pad + BENCH_BLOCK] = torch.from_numpy(samples).to(dev)
 
@@ -73,7 +78,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    prof.export_chrome_trace(os.path.join(ROOT, "chiprun_out", "profile_rx_torch.json"))
+    prof.export_chrome_trace(os.path.join(ROOT, "chiprun_out", f"profile_rx_torch_{args.carrier}.json"))
 
     cuda = torch.autograd.DeviceType.CUDA
     evs = [e for e in prof.events() if e.device_type == cuda]
@@ -93,7 +98,8 @@ def main() -> int:
         for k in inside:
             per[k.name] = per.get(k.name, 0.0) + k.time_range.elapsed_us() / 1e3
     n = args.steps
-    print(f"card: {card}; {n} steps of {args.channels} ch x {BENCH_BLOCK} samples")
+    print(f"card: {card}; {n} steps of {args.channels} ch x {BENCH_BLOCK} samples, "
+          f"{args.carrier} payload carrier")
     print(f"wall {plain_wall_ms / n:.3f} ms/step unprofiled, {wall_ms / n:.3f} profiled; "
           f"device busy {busy_ms / n:.3f} ms/step in {len(kernels) / n:.0f} kernels; "
           f"idle share {1 - busy_ms / plain_wall_ms:.3f} "

@@ -1,4 +1,4 @@
-"""Numpy models of the schedules of the K1 and K3 CUDA kernels.
+"""Numpy models of the schedules of the K1, K3 and K5 CUDA kernels.
 
 The kernels run only on the card; their schedules are tested here. K1's
 model runs the kernel's passes (radices, each thread's 16 points, the
@@ -9,8 +9,14 @@ size the kernel takes, so a fault in the tables or the replica permutation
 shows here. The exchange buffers' swizzle is checked free of bank
 conflicts. K3's phase-split model (``phase_split_reference``, the
 kernel's order of sums) is held against the plain version that the CPU
-route runs.
+route runs. K5's model runs BP along the wrapper's warp plan
+(``ldpc_cuda.warp_plan``: lane ownership, per-warp publish slots) and is
+held bit for bit against the plain version; the plan's limits are checked
+against the kernel's source.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,7 +32,9 @@ from gr4_packet_modem_tpu_torch.ops.acquire_cuda import (  # noqa: E402
     kernel_positions,
     replica_table,
 )
+from gr4_packet_modem_tpu_torch.ops import ldpc, ldpc_cuda  # noqa: E402
 from gr4_packet_modem_tpu_torch.ops.matched_cuda import matched_filter_plain  # noqa: E402
+from gr4_packet_modem_tpu_torch.utils.stimulus import ldpc_encode_bytes  # noqa: E402
 
 
 def _twiddle_powers(b1, b2, b4, b8):
@@ -177,3 +185,130 @@ def test_k3_phase_split_equals_plain(d, k, sps, s, short):
     zt = torch.from_numpy(z)
     want = matched_filter_plain(zt, zt, torch.from_numpy(taps), sps, s)[0].numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+def _header_tables():
+    t = ldpc.decoder_tables()
+    return ldpc.edge_tables(t["vidx"], t["vmask"], t["h"].shape[1])
+
+
+def k5_warp_model(llr: np.ndarray, plan: dict, iters: int = 25, alpha: float = 0.75) -> np.ndarray:
+    """BP as K5 runs it (csrc/ldpc_warp.cuh), for a batch of warps in
+    float32: each lane's registers (its checks' messages, its variables'
+    totals) and the warp's two shared arrays with their padding slots,
+    phase by phase, each phase's loads before its publishing. Returns the
+    final totals ``[B, N]`` gathered from the lanes."""
+    f32 = np.float32
+    b = llr.shape[0]
+    alpha = f32(alpha)
+    vars_, own = plan["vars"], plan["vars"] >= 0
+    c2v_sh = np.zeros((b, ldpc_cuda.C2V_FLOATS), f32)
+    tot_sh = np.zeros((b, ldpc_cuda.TOT_FLOATS), f32)
+    tot_sh[:, ldpc_cuda.INF_TOTAL] = np.inf
+    c2v = np.zeros((b, *plan["chk_in"].shape), f32)  # [B, lane, check, slot]
+    lane_llr = np.where(own, llr[:, vars_.clip(0)], f32(0))  # [B, lane, variable]
+    total = np.zeros_like(lane_llr)
+
+    def variable_phase():
+        msgs = c2v_sh[:, plan["var_in"]]  # [B, lane, variable, edge]
+        acc = np.zeros_like(total)
+        for j in range(msgs.shape[-1]):
+            acc = acc + msgs[..., j]
+        total[:] = lane_llr + acc
+        tot_sh[:, plan["var_out"]] = total
+
+    def check_phase():
+        x = tot_sh[:, plan["chk_in"]] - c2v
+        sg = np.where(x >= 0, f32(1), f32(-1))
+        mg = np.abs(x)
+        tot_sgn = np.prod(sg, axis=-1, keepdims=True)
+        m1 = np.full(mg.shape[:-1], np.inf, f32)
+        m2 = m1.copy()
+        for j in range(mg.shape[-1]):
+            m2 = np.minimum(m2, np.maximum(m1, mg[..., j]))
+            m1 = np.minimum(m1, mg[..., j])
+        mag = np.minimum(np.where(mg == m1[..., None], m2[..., None], m1[..., None]), f32(1e30))
+        c2v[:] = alpha * (tot_sgn * sg) * mag
+        c2v_sh[:, plan["chk_out"]] = c2v
+
+    variable_phase()
+    for _ in range(iters):
+        check_phase()
+        variable_phase()
+    out = np.zeros_like(llr)
+    out[:, vars_[own]] = total[:, own]
+    return out
+
+
+def test_k5_plan_publishes_each_message_once():
+    """Every message a check publishes is read by exactly one variable, at
+    the slot the variable reads; padding reads only the zero message and
+    the +inf total, and writes only the trash slots; each variable's total
+    is published once; each warp-wide publish (one owned check or
+    variable, one slot) of a real message falls on distinct banks."""
+    cv, ve = _header_tables()
+    plan = ldpc_cuda.warp_plan(cv, ve)
+    real = plan["chk_out"] < ldpc_cuda.ZERO_MSG
+    reads = plan["var_in"][plan["var_in"] < ldpc_cuda.ZERO_MSG]
+    edges = list(np.nonzero(cv.ravel() >= 0)[0])
+    assert sorted(plan["chk_out"][real]) == sorted(reads) == edges
+    assert set(plan["chk_out"][~real]) == {ldpc_cuda.TRASH_MSG}
+    assert set(plan["chk_in"][~real]) == {ldpc_cuda.INF_TOTAL}
+    assert set(plan["var_in"][plan["var_in"] >= ldpc_cuda.ZERO_MSG]) <= {ldpc_cuda.ZERO_MSG}
+    assert sorted(plan["var_out"][plan["vars"] >= 0]) == list(range(ve.shape[0]))
+    assert sorted(plan["checks"][plan["checks"] >= 0]) == list(range(cv.shape[0]))
+    for k in range(ldpc_cuda.CHECKS_PER_LANE):
+        for j in range(ldpc_cuda.MAX_CHECK_DEG):
+            s = plan["chk_out"][:, k, j][real[:, k, j]]
+            assert len(set(s % 32)) == s.size, (k, j)
+
+
+def test_k5_warp_model_equals_plain():
+    """The warp plan's BP, bit for bit, against ``ldpc_totals_plain`` on
+    noisy codewords from -6 to +4 dB (some of which do not converge)."""
+    rng = np.random.default_rng(11)
+    snr_db = np.repeat(np.arange(-6.0, 6.0, 2.0), 16)[:, None]
+    b = snr_db.shape[0]
+    headers = rng.integers(0, 256, (b, 4), dtype=np.uint8)
+    cw = np.unpackbits(np.stack([ldpc_encode_bytes(h)[:16] for h in headers]), axis=1)
+    sigma = np.sqrt(1.0 / (2 * 10 ** (snr_db / 10)))
+    llr = ((2.0 / sigma**2) * (1.0 - 2.0 * cw + sigma * rng.standard_normal(cw.shape))).astype(np.float32)
+    cv, ve = _header_tables()
+    got = k5_warp_model(llr, ldpc_cuda.warp_plan(cv, ve))
+    want = ldpc.ldpc_totals_plain(torch.from_numpy(llr), torch.from_numpy(cv), torch.from_numpy(ve)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    ok = ldpc.finish(torch.from_numpy(got), torch.from_numpy(ldpc.decoder_tables()["h"]))[1]
+    assert 0 < ok.float().mean().item() < 1
+
+
+@pytest.mark.parametrize(
+    "m,dmax,n,vdeg",
+    [(96, ldpc_cuda.MAX_CHECK_DEG + 1, 128, 3), (96, 5, 128, 4), (97, 5, 128, 3), (96, 5, 129, 3)],
+)
+def test_k5_wrapper_refuses_tables_beyond_the_kernel(m, dmax, n, vdeg):
+    """A check of degree kMaxDeg + 1, a variable of degree 4, one check or
+    one variable too many: refused on the CPU route too, and by the plan."""
+    llr = torch.zeros(2, n)
+    cv = torch.zeros(m, dmax, dtype=torch.int32)
+    ve = torch.zeros(n, vdeg, dtype=torch.int32)
+    with pytest.raises(ValueError, match="ldpc kernel"):
+        ldpc_cuda.ldpc_totals(llr, cv, ve)
+    with pytest.raises(ValueError, match="ldpc kernel"):
+        ldpc_cuda.warp_plan(cv.numpy(), ve.numpy())
+
+
+def test_k5_plan_limits_are_the_kernels():
+    """The plan's constants are the kernel's compile-time constants."""
+    src = (Path(ldpc_cuda.__file__).parents[1] / "csrc" / "ldpc_warp.cuh").read_text()
+    consts = {}
+    for name, expr in re.findall(r"constexpr int (k\w+) = ([^;]+);", src):
+        consts[name] = eval(expr, {}, dict(consts))
+    python = {
+        "kWarp": "WARP", "kVarsPerLane": "VARS_PER_LANE", "kChecksPerLane": "CHECKS_PER_LANE",
+        "kVarDeg": "VAR_DEG", "kMaxDeg": "MAX_CHECK_DEG", "kZeroMsg": "ZERO_MSG",
+        "kTrashMsg": "TRASH_MSG", "kC2vFloats": "C2V_FLOATS", "kInfTotal": "INF_TOTAL",
+        "kTrashTotal": "TRASH_TOTAL", "kTotFloats": "TOT_FLOATS",
+    }
+    assert sorted(consts) == sorted(python)
+    for name, attr in python.items():
+        assert consts[name] == getattr(ldpc_cuda, attr), name
