@@ -6,20 +6,27 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: require CUDA, print the card's name and power limit;
 2. build: compile the CUDA kernels (``gr4_packet_modem_tpu_torch/csrc``)
    with nvcc, one process per source, into ``build/kernels/``, and beside
-   them, in parallel, the chain-latency probe (``csrc/probe/chain.cu``);
+   them, in parallel, the probes: ``csrc/probe/chain.cu`` (chain latency
+   and an empty kernel) and ``csrc/probe/fetch_planes.cu`` (K2 as it was on
+   float32 planes);
 3. kernels: hold each kernel against its plain PyTorch version on the card
-   at the receive chain's shapes (K4 and K5 bit for bit); time the kernel,
-   its plain version and, where one PyTorch call computes the same
-   function, that call (``library_ms``: ``unfold`` and index for K2 and
-   K2b, the depthwise strided ``conv1d`` with TF32 off for K3), each as
-   device time from torch.profiler over a loop of calls with the L2
-   evicted before each, with the host's time per call beside it where that
-   is larger; K1 and K3 in turns with their yardstick; and each kernel's
-   bound (``bound_ms``: bytes over 3.35 TB/s or float32 operations over 67
-   TFLOP/s, whichever is larger). The recursions K4 and K5 are also timed
-   at B=32 (one warp) and given a chain floor: the cycles of their step
-   bodies run by one warp on registers, over the SM clock that
-   ``nvidia-smi`` reads;
+   at the receive chain's shapes (K2, K2b, K4 and K5 bit for bit); time the
+   kernel, its plain version and, where one PyTorch call computes the same
+   function, that call (``library_ms``: ``unfold`` and index for K2, on the
+   complex bank, and K2b, the depthwise strided ``conv1d`` with TF32 off
+   for K3), each as device time from torch.profiler over a loop of calls
+   with the L2 evicted before each, with the host's time per call beside it
+   where that is larger; K1 and K3 in turns with their yardstick; each
+   kernel's bound (``bound_ms``: bytes over 3.35 TB/s or float32
+   operations over 67 TFLOP/s, whichever is larger) and, beside every row,
+   the launch floor (``launch_floor_ms``: an empty kernel timed the same
+   way). K2 is also timed as its callers ran it before it read the complex
+   bank (two plane splits of the bank, then the plane kernel), and in turns
+   with a grid-stride grid of one wave in place of its flat grid; K2b also
+   with the L2 warm, as the main path finds its inputs. The recursions
+   K4 and K5 are also timed at B=32 (one warp) and given a chain floor: the
+   cycles of their step bodies run by one warp on registers, over the SM
+   clock that ``nvidia-smi`` reads;
 4. slice: ``Receiver.bank_step`` at the bench geometry (64 channels of
    2**19 samples of back-to-back 1500-byte bursts, 9 frequency bins,
    1536-byte max payload, 24 detection slots, V&V payload carrier, fused
@@ -120,11 +127,13 @@ FLUSH_BYTES = 256 << 20
 _flush = []
 
 
-def timed(torch, fn, reps: int = 10) -> dict:
+def timed(torch, fn, reps: int = 10, flush: bool = True) -> dict:
     """Per call of ``fn``: ``ms``, the device time with the L2 cold
     (torch.profiler: the time of every kernel the call launches, summed
     over ``reps`` calls, each after a write of ``FLUSH_BYTES`` whose own
-    kernel is left out, divided by ``reps``, after a warm-up); ``loop_ms``,
+    kernel is left out, divided by ``reps``, after a warm-up; with
+    ``flush`` False the write is left out too, so each call finds in the
+    L2 what the call before left there); ``loop_ms``,
     CUDA events around ``reps`` back-to-back calls; ``host_ms``, the host's
     time to issue one call in that loop."""
     from torch.profiler import ProfilerActivity, profile
@@ -153,13 +162,15 @@ def timed(torch, fn, reps: int = 10) -> dict:
             scratch.bitwise_not_()
             torch.cuda.synchronize()
             for _ in range(reps):
-                scratch.bitwise_not_()
+                if flush:
+                    scratch.bitwise_not_()
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == cuda]
         flushes = sum("bitwise_not" in e.name for e in events)
         calls = [e for e in events if "bitwise_not" not in e.name]
-        check(flushes <= reps + 1, f"{flushes} flush kernels in {reps} calls: the timed call launches their kind")
+        check(flushes <= (reps if flush else 0) + 1,
+              f"{flushes} flush kernels in {reps} calls: the timed call launches their kind")
         if calls and len(calls) % reps == 0:
             break
     check(bool(calls) and len(calls) % reps == 0,
@@ -193,19 +204,24 @@ def chain_floor(torch, probe, entry: str, *args) -> dict:
     return {"cycles": cyc, "sm_mhz": mhz, "ms": cyc / (mhz * 1e3)}
 
 
-def build_probe():
-    """Build and load the chain probe, with its entry points' argument
-    types."""
+def build_probe(name: str):
+    """Build and load the probe ``csrc/probe/<name>.cu``, with its entry
+    points' argument types."""
     import ctypes
 
     from gr4_packet_modem_tpu_torch.ops import _build
 
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib = _build.build_single(_build.CSRC / "probe" / "chain.cu")
-    # cycles, sink, steps, offset, stream
-    lib.pm_costas_chain.argtypes = [P, P, I, I, P]
-    # cycles, sink, llrs, chk_vars, var_edges, m, dmax, n, vdeg, iters, alpha, stream
-    lib.pm_ldpc_chain.argtypes = [P, P, P, P, P, I, I, I, I, I, F, P]
+    P, I, I64, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib = _build.build_single(_build.CSRC / "probe" / f"{name}.cu")
+    if name == "chain":
+        # cycles, sink, steps, offset, stream
+        lib.pm_costas_chain.argtypes = [P, P, I, I, P]
+        # cycles, sink, llrs, chk_vars, var_edges, m, dmax, n, vdeg, iters, alpha, stream
+        lib.pm_ldpc_chain.argtypes = [P, P, P, P, P, I, I, I, I, I, F, P]
+        lib.pm_empty.argtypes = [P]
+    else:
+        # xr, xi, starts, outr, outi, total_len, region_len, d, stream
+        lib.pm_fetch_planes.argtypes = [P, P, P, P, P, I64, I, I, P]
     return lib
 
 
@@ -242,23 +258,24 @@ def bench_signal(block: int, channels: int):
 # ---------------------------------------------------------------- kernels
 
 
-def kernel_checks(torch, card: str, probe) -> dict:
+def kernel_checks(torch, card: str, probes: dict) -> dict:
     """Each kernel against its plain version at the chain's shapes; the
     time of each, of its plain version and, where one PyTorch call computes
-    the same function, of that call; and each kernel's bound at its shape.
-    K4 and K5 also at B=32 and with their chain floors (``probe``: the
-    library of ``build_probe``). Launches here are comparisons: they do not
-    count as the main path's."""
+    the same function, of that call; each kernel's bound at its shape and
+    the launch floor. K2 also by the route it replaced and on another grid;
+    K4 and K5 also at B=32 and with their chain floors (``probes``: the
+    libraries of ``build_probe`` by name). Launches here are comparisons:
+    they do not count as the main path's."""
     import torch.nn.functional as F
 
     from gr4_packet_modem_tpu_torch.entry import BENCH_BLOCK, BENCH_CHANNELS, BENCH_CONFIG
     from gr4_packet_modem_tpu_torch.models.receiver import Receiver
-    from gr4_packet_modem_tpu_torch.ops import ldpc
+    from gr4_packet_modem_tpu_torch.ops import _build, ldpc
     from gr4_packet_modem_tpu_torch.ops.acquire import AcquisitionConfig, SyncwordAcquirer
     from gr4_packet_modem_tpu_torch.ops.acquire_cuda import fused_best_power, fused_best_power_plain
     from gr4_packet_modem_tpu_torch.ops.costas_cuda import costas_track, costas_track_plain
     from gr4_packet_modem_tpu_torch.ops.fetch_cuda import (
-        fetch_regions, fetch_regions_plain, fetch_rows, fetch_rows_plain,
+        fetch_plan, fetch_regions, fetch_regions_plain, fetch_rows, fetch_rows_plain,
     )
     from gr4_packet_modem_tpu_torch.ops.ldpc_cuda import ldpc_totals
     from gr4_packet_modem_tpu_torch.ops.matched_cuda import matched_filter, matched_filter_plain
@@ -271,6 +288,17 @@ def kernel_checks(torch, card: str, probe) -> dict:
     d = 1536  # 64 channels x 24 detection slots
     res, rows = {}, []
 
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    # the launch floor: an empty kernel (one warp), timed as the kernels are
+    def empty():
+        check(probes["chain"].pm_empty(stream()) == 0, "pm_empty: launch failed")
+
+    launch_floor = timed(torch, empty)["ms"]
+    log(f"  launch floor (an empty kernel, timed as the kernels are): {launch_floor:.4f} ms  [{card}]")
+    res["launch_floor_ms"] = launch_floor
+
     def record(name, shape, err, k, plain, lib, nbytes, ops, main, extra=None):
         bms, by = bound(nbytes, ops)
         host = f" (host {k['host_ms']:.4f} ms/call, loop {k['loop_ms']:.4f})" \
@@ -278,10 +306,11 @@ def kernel_checks(torch, card: str, probe) -> dict:
         libs = f"{lib:.4f} ms" if lib is not None else "none"
         log(f"  {name:10s} {shape:34s} max_abs_err={err:.3e} kernel={k['ms']:.4f} ms{host} "
             f"plain={plain:.4f} ms library={libs} bound={bms:.4f} ms ({by}, "
-            f"{100 * bms / k['ms']:.1f} % of it)  [{card}]")
+            f"{100 * bms / k['ms']:.1f} % of it) launch_floor_ms={launch_floor:.4f}  [{card}]")
         extra = extra or {}
         rows.append({"name": name, "shape": shape, "max_abs_err": err, **k, "plain_ms": plain,
-                     "library_ms": lib, "bound_ms": bms, "bound_by": by, **extra})
+                     "library_ms": lib, "bound_ms": bms, "bound_by": by,
+                     "launch_floor_ms": launch_floor, **extra})
         r = res.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if main:
@@ -296,36 +325,85 @@ def kernel_checks(torch, card: str, probe) -> dict:
         return {"b32_ms": k32, "chain_floor_ms": floor["ms"], "chain_cycles": floor["cycles"],
                 "sm_mhz": floor["sm_mhz"]}
 
-    # K2 region fetch: the flattened 64-channel bank plane, odd starts
+    # K2 region fetch: the flattened 64-channel complex64 bank, starts of
+    # both parities and both edge starts. Beside the kernel: the route it
+    # replaced (the bank split into I and Q planes, then the plane kernel
+    # of csrc/probe/fetch_planes.cu), that plane kernel alone on planes
+    # split beforehand, and the kernel on a grid-stride grid of one wave
+    # (8 blocks of 256 an SM) in place of the plan's flat grid
     t = 64 * 553_396
-    xr = torch.randn(t, generator=gen, device=dev)
-    xi = torch.randn(t, generator=gen, device=dev)
+    x = torch.randn(t, generator=gen, device=dev, dtype=torch.complex64)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib2 = _build.library()
     for r in (1569, 808, 24_680):
-        starts = 2 * torch.randint(0, (t - r) // 2, (d,), generator=gen, device=dev) + 1
-        starts[0], starts[1] = 1, t - r
-        kr, ki = fetch_regions(xr, xi, starts, r)
+        starts = torch.randint(0, t - r + 1, (d,), generator=gen, device=dev)
+        starts[:3] = torch.tensor([0, 1, t - r])
+        kr, ki = fetch_regions(x, starts, r)
         torch.cuda.synchronize()
-        pr, pi = fetch_regions_plain(xr, xi, starts, r)
+        pr, pi = fetch_regions_plain(x, starts, r)
         check(torch.equal(kr, pr) and torch.equal(ki, pi), f"fetch R={r}: not bit-exact")
-        k = timed(torch, lambda: fetch_regions(xr, xi, starts, r))
-        pms = timed(torch, lambda: fetch_regions_plain(xr, xi, starts, r))["ms"]
-        lib = timed(torch, lambda: (xr.unfold(0, r, 1)[starts], xi.unfold(0, r, 1)[starts]))["ms"]
-        record("fetch", f"D={d} R={r}", 0.0, k, pms, lib, 2 * (2 * d * r * 4) + d * 8, 0,
-               r == 24_680)
+        outr, outi = torch.empty_like(pr), torch.empty_like(pi)
+        planes = x.real.contiguous(), x.imag.contiguous()
 
-    # K2b row fetch: one plane of the same size (the bank's best-power
-    # plane on the main path, where R=3), odd starts and both edge starts
+        def plane_kernel(xr, xi):
+            status = probes["fetch_planes"].pm_fetch_planes(
+                xr.data_ptr(), xi.data_ptr(), starts.data_ptr(), outr.data_ptr(),
+                outi.data_ptr(), t, r, d, stream())
+            check(status == 0, f"pm_fetch_planes: CUDA error {status}")
+
+        def parent_route():
+            plane_kernel(x.real.contiguous(), x.imag.contiguous())
+
+        def one_wave():
+            blocks = min(fetch_plan(r, d)["blocks"], sms * 2048 // 256)
+            status = lib2.pm_fetch_regions(x.data_ptr(), starts.data_ptr(), outr.data_ptr(),
+                                           outi.data_ptr(), t, r, d, blocks, stream())
+            check(status == 0, f"pm_fetch_regions: CUDA error {status}")
+
+        for fn in (parent_route, one_wave):
+            outr.zero_()
+            outi.zero_()
+            fn()
+            torch.cuda.synchronize()
+            check(torch.equal(outr, pr) and torch.equal(outi, pi), f"fetch R={r}: {fn.__name__} differs")
+        del kr, ki, pr, pi
+        k1 = timed(torch, lambda: fetch_regions(x, starts, r))
+        w1 = timed(torch, one_wave)["ms"]
+        w2 = timed(torch, one_wave)["ms"]
+        k2 = timed(torch, lambda: fetch_regions(x, starts, r))
+        k = {key: (k1[key] + k2[key]) / 2 for key in k1}
+        pms = timed(torch, lambda: fetch_regions_plain(x, starts, r))["ms"]
+        lib = timed(torch, lambda: torch.view_as_real(x).unfold(0, r, 1)[starts])["ms"]
+        extra = {"parent_route_ms": timed(torch, parent_route)["ms"],
+                 "plane_kernel_ms": timed(torch, lambda: plane_kernel(*planes))["ms"],
+                 "one_wave_ms": (w1 + w2) / 2}
+        log(f"  fetch R={r}: in turns flat grid {k1['ms']:.4f}, one-wave grid {w1:.4f}, "
+            f"one-wave grid {w2:.4f}, flat grid {k2['ms']:.4f} ms; the replaced route (2 splits + "
+            f"plane kernel) {extra['parent_route_ms']:.4f} ms, its plane kernel alone "
+            f"{extra['plane_kernel_ms']:.4f} ms  [{card}]")
+        record("fetch", f"D={d} R={r}", 0.0, k, pms, lib, 2 * (2 * d * r * 4) + d * 8, 0,
+               r == 24_680, extra)
+        del planes, outr, outi
+    del x
+
+    # K2b row fetch: a float32 plane of the bank's size (the bank's
+    # best-power plane on the main path, where R=3), odd starts and both
+    # edge starts
+    plane = torch.randn(t, generator=gen, device=dev)
     for r in (3, 297, 1569):
         starts = 2 * torch.randint(0, (t - r) // 2, (d,), generator=gen, device=dev) + 1
         starts[0], starts[1] = 0, t - r
-        kk = fetch_rows(xr, starts, r)
+        kk = fetch_rows(plane, starts, r)
         torch.cuda.synchronize()
-        check(torch.equal(kk, fetch_rows_plain(xr, starts, r)), f"fetch_rows R={r}: not bit-exact")
-        k = timed(torch, lambda: fetch_rows(xr, starts, r))
-        pms = timed(torch, lambda: fetch_rows_plain(xr, starts, r))["ms"]
-        lib = timed(torch, lambda: xr.unfold(0, r, 1)[starts])["ms"]
-        record("fetch_rows", f"D={d} R={r}", 0.0, k, pms, lib, 2 * d * r * 4 + d * 8, 0, r == 3)
-    del xr, xi
+        check(torch.equal(kk, fetch_rows_plain(plane, starts, r)), f"fetch_rows R={r}: not bit-exact")
+        k = timed(torch, lambda: fetch_rows(plane, starts, r))
+        pms = timed(torch, lambda: fetch_rows_plain(plane, starts, r))["ms"]
+        lib = timed(torch, lambda: plane.unfold(0, r, 1)[starts])["ms"]
+        warm = timed(torch, lambda: fetch_rows(plane, starts, r), flush=False)["ms"]
+        log(f"  fetch_rows R={r}: with the L2 warm (no eviction between calls) {warm:.4f} ms  [{card}]")
+        record("fetch_rows", f"D={d} R={r}", 0.0, k, pms, lib, 2 * d * r * 4 + d * 8, 0, r == 3,
+               {"warm_l2_ms": warm})
+    del plane
 
     # K1 fused correlator: the bench bank (syncwords at every burst start)
     # in noise, framed by the acquirer as the main path frames it; then
@@ -442,7 +520,7 @@ def kernel_checks(torch, card: str, probe) -> dict:
         shape = f"B={d} S={s} offset={offset}"
         extra = recursion("costas", shape, k,
                           lambda: costas_track(sym[:32], ph0[:32], fr0[:32], offset=offset),
-                          chain_floor(torch, probe, "pm_costas_chain", s, offset))
+                          chain_floor(torch, probes["chain"], "pm_costas_chain", s, offset))
         # a symbol: derotation 6, error 2, loop update 5, wraps 2, and the
         # accurate cosf and sinf counted as 20 operations each
         record("costas", shape, err, k, pms, None,
@@ -480,7 +558,7 @@ def kernel_checks(torch, card: str, probe) -> dict:
     iters, alpha = 25, float(np.float32(0.75))
     shape = f"B={d} iters={iters}"
     (m, dmax), (n, vdeg) = cv.shape, ve.shape
-    floor = chain_floor(torch, probe, "pm_ldpc_chain", llr.data_ptr(), cv.data_ptr(),
+    floor = chain_floor(torch, probes["chain"], "pm_ldpc_chain", llr.data_ptr(), cv.data_ptr(),
                         ve.data_ptr(), m, dmax, n, vdeg, iters, alpha)
     extra = recursion("ldpc", shape, k, lambda: ldpc_totals(llr[:32], cv, ve), floor)
     # an edge an iteration: the variable sum's add; the check's subtract,
@@ -747,19 +825,19 @@ def main() -> int:
     from gr4_packet_modem_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        probe_job = pool.submit(build_probe)
+    with ThreadPoolExecutor(3) as pool:
+        jobs = {name: pool.submit(build_probe, name) for name in ("chain", "fetch_planes")}
         path = _build.build()
-        probe = probe_job.result()
+        probes = {name: job.result() for name, job in jobs.items()}
     _build.library()
-    log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(path, ROOT)} and the chain probe")
+    log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(path, ROOT)} and the probes")
     for line in path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             log(f"  {line.strip()}")
 
     # phase 3: kernels vs plain versions
     log("kernels:")
-    kres = kernel_checks(torch, card, probe)
+    kres = kernel_checks(torch, card, probes)
 
     # phase 4: the slice
     log("slice:")
@@ -782,7 +860,8 @@ def main() -> int:
     ]
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": kernels, "kernel_rows": kres["rows"], "slice": sres,
+        json.dump({"card": card, "kernels": kernels, "kernel_rows": kres["rows"],
+                   "launch_floor_ms": kres["launch_floor_ms"], "slice": sres,
                    "streaming": stres}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 // bodies (costas_step.cuh, ldpc_warp.cuh) on values held in registers, with
 // no device-memory traffic inside the timed loop, and reads clock64()
 // around it. Cycles per step times the steps of a call is the least time a
-// call can take whatever its loads do: the chain floor. Built on its own,
-// outside the port's library (ops/_build.py::build_single), by
-// chip_smoke.py.
+// call can take whatever its loads do: the chain floor. Beside them, an
+// empty kernel: its device time is the least that any launch takes, the
+// launch floor. Built on its own, outside the port's library
+// (ops/_build.py::build_single), by chip_smoke.py.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,6 +57,9 @@ __global__ void ldpc_chain(long long* cycles, float* sink, const float* llrs,
   sink[lane] = acc;
 }
 
+// The launch floor: one warp that does nothing.
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 extern "C" int pm_costas_chain(void* cycles, void* sink, int steps, int offset,
@@ -74,5 +78,10 @@ extern "C" int pm_ldpc_chain(void* cycles, void* sink, const void* llrs,
       static_cast<long long*>(cycles), static_cast<float*>(sink),
       static_cast<const float*>(llrs), static_cast<const int*>(chk_vars),
       static_cast<const int*>(var_edges), m, dmax, n, vdeg, iters, alpha);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pm_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -295,8 +295,7 @@ class Receiver(nn.Module):
         else:
             chunk, nchunks = num_syms, 1
         row_len = x.shape[-1]
-        xr = x.real.contiguous().reshape(-1)
-        xi = x.imag.contiguous().reshape(-1)
+        xf = x.reshape(-1)
         region_len = sps * (chunk - 1) + kk
         j = torch.arange(region_len, device=x.device)
         out = []
@@ -304,7 +303,7 @@ class Receiver(nn.Module):
             start = n_base + sps * (sym_offset + c * chunk) - (kk - 1)
             start = torch.clamp(start, 0, row_len - region_len)
             fetch_start = start if chan is None else start + chan * row_len
-            rr, ri = fetch_regions(xr, xi, fetch_start, region_len)
+            rr, ri = fetch_regions(xf, fetch_start, region_len)
             ph = -freq[:, None] * (start[:, None] + j - n0[:, None]).to(torch.float32)
             cph, sph = torch.cos(ph), torch.sin(ph)
             dr = rr * cph - ri * sph

@@ -47,10 +47,10 @@ _F = ctypes.c_float
 # argument lists of the C entry points (pointers and the stream as c_void_p:
 # a bare Python int would be passed as a 32-bit int and cut the pointer)
 _SIGNATURES = {
-    # xr, xi, starts, outr, outi, total_len, region_len, d, stream
-    "pm_fetch_regions": [_P, _P, _P, _P, _P, _I64, _I, _I, _P],
-    # x, starts, out, total_len, region_len, d, stream
-    "pm_fetch_rows": [_P, _P, _P, _I64, _I, _I, _P],
+    # x, starts, outr, outi, total_len, region_len, d, blocks, stream
+    "pm_fetch_regions": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
+    # x, starts, out, total_len, region_len, d, blocks, stream
+    "pm_fetch_rows": [_P, _P, _P, _I64, _I, _I, _I, _P],
     # ar, ai, br, bi, rf, tw, best_pow, best_bin, fpad, s, nb, log2n, stream
     "pm_correlate": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # zr, zi, taps, outr, outi, region_len, ntaps, sps, num_syms, d, stream

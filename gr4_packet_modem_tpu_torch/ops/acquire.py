@@ -398,10 +398,7 @@ class SyncwordAcquirer(nn.Module):
         region = 2 * w + k
         tc2 = torch.clamp(ti - w - (k - 1) // 2, 0, t - region)
         starts = (tc2 + torch.arange(c, device=x.device)[:, None] * t).reshape(-1)
-        wnr, wni = fetch_regions(
-            x.real.contiguous().reshape(-1), x.imag.contiguous().reshape(-1),
-            starts, region,
-        )
+        wnr, wni = fetch_regions(x.reshape(-1), starts, region)
         wnr = wnr.view(c, -1, region)
         wni = wni.view(c, -1, region)
         # ---------------- parameter estimation at the candidates

@@ -28,16 +28,21 @@ def dev():
     return torch.device("cuda")
 
 
-def test_fetch_bit_exact(dev):
-    g = torch.Generator(device=dev).manual_seed(0)
-    t, d, r = 100_000, 37, 1569
-    xr = torch.randn(t, generator=g, device=dev)
-    xi = torch.randn(t, generator=g, device=dev)
-    starts = 2 * torch.randint(0, (t - r) // 2, (d,), generator=g, device=dev) + 1
-    starts[0] = t - r
-    kr, ki = fetch_regions(xr, xi, starts, r)
-    pr, pi = fetch_regions_plain(xr, xi, starts, r)
-    assert torch.equal(kr, pr) and torch.equal(ki, pi)
+@pytest.mark.parametrize("d", [37, 1536])
+@pytest.mark.parametrize("r", [3, 808, 809, 1569, 24680])
+def test_fetch_bit_exact(dev, r, d):
+    """K2 on the complex bank at odd and even starts, 0 and T - R, and on a
+    bank that starts one sample past a 16-byte boundary (so the start
+    parity that takes the float4 loads flips)."""
+    g = torch.Generator(device=dev).manual_seed(r + d)
+    t = 100_001
+    bank = torch.randn(t + 1, generator=g, device=dev, dtype=torch.complex64)
+    for x in (bank[:t], bank[1:]):
+        starts = torch.randint(0, t - r + 1, (d,), generator=g, device=dev)
+        starts[:4] = torch.tensor([0, 1, t - r, t - r - 1])
+        kr, ki = fetch_regions(x, starts, r)
+        pr, pi = fetch_regions_plain(x, starts, r)
+        assert torch.equal(kr, pr) and torch.equal(ki, pi)
 
 
 @pytest.mark.parametrize(
@@ -136,11 +141,12 @@ def test_correlate_matches_plain(dev, n, fpad, nb):
     assert (kb == pb).float().mean().item() >= 0.999
 
 
-def test_fetch_rows_bit_exact(dev):
+@pytest.mark.parametrize("d", [37, 1536])
+def test_fetch_rows_bit_exact(dev, d):
     from gr4_packet_modem_tpu_torch.ops.fetch_cuda import fetch_rows, fetch_rows_plain
 
-    g = torch.Generator(device=dev).manual_seed(1)
-    t, d = 100_000, 37
+    g = torch.Generator(device=dev).manual_seed(d)
+    t = 100_000
     x = torch.randn(t, generator=g, device=dev)
     for r in (3, 297, 1569):
         starts = 2 * torch.randint(0, (t - r) // 2, (d,), generator=g, device=dev) + 1

@@ -1,4 +1,4 @@
-"""Numpy models of the schedules of the K1, K3 and K5 CUDA kernels.
+"""Numpy models of the schedules of the K1, K2, K2b, K3 and K5 CUDA kernels.
 
 The kernels run only on the card; their schedules are tested here. K1's
 model runs the kernel's passes (radices, each thread's 16 points, the
@@ -12,7 +12,11 @@ kernel's order of sums) is held against the plain version that the CPU
 route runs. K5's model runs BP along the wrapper's warp plan
 (``ldpc_cuda.warp_plan``: lane ownership, per-warp publish slots) and is
 held bit for bit against the plain version; the plan's limits are checked
-against the kernel's source.
+against the kernel's source. K2's model copies along the wrapper's thread
+plan (``fetch_cuda.fetch_plan``: items of four samples, the float4 and
+float2 load branches, the vector or scalar stores, the scalar tail, the
+grid) and K2b's along ``fetch_cuda.rows_plan``; both are held bit for bit
+against the plain versions, with every output element written once.
 """
 
 import re
@@ -32,7 +36,7 @@ from gr4_packet_modem_tpu_torch.ops.acquire_cuda import (  # noqa: E402
     kernel_positions,
     replica_table,
 )
-from gr4_packet_modem_tpu_torch.ops import ldpc, ldpc_cuda  # noqa: E402
+from gr4_packet_modem_tpu_torch.ops import fetch_cuda, ldpc, ldpc_cuda  # noqa: E402
 from gr4_packet_modem_tpu_torch.ops.matched_cuda import matched_filter_plain  # noqa: E402
 from gr4_packet_modem_tpu_torch.utils.stimulus import ldpc_encode_bytes  # noqa: E402
 
@@ -312,3 +316,119 @@ def test_k5_plan_limits_are_the_kernels():
     assert sorted(consts) == sorted(python)
     for name, attr in python.items():
         assert consts[name] == getattr(ldpc_cuda, attr), name
+
+
+def k2_model(x: np.ndarray, base: int, starts: np.ndarray, r: int, plan: dict) -> dict:
+    """K2 as its thread plan runs it (csrc/fetch.cu) on the complex64 bank
+    ``x`` ``[T]``, whose first sample lies ``base`` samples (0 or 1) past a
+    16-byte boundary: each pass of the grid-stride loop over the items of
+    the flat output, each item's load branch (in one row: two float4 where
+    its run starts 16-byte aligned, else float2 sample by sample; across a
+    row's end: float2 sample by sample from each row's window) and store
+    branch (one float4 a plane, the output's last item sample by sample
+    when it is short). Every load is checked to lie inside its window and
+    every float4 to be 16-byte aligned. Returns the planes, the writes per
+    output element and the branch counts."""
+    f = x.view(np.float32)  # I0 Q0 I1 Q1 ..., as the kernel reads it
+    t, run, total = x.size, plan["run"], plan["elements"]
+    hi = t - r
+    outr = np.zeros(total, np.float32)
+    outi = np.zeros(total, np.float32)
+    writes = np.zeros(total, np.int64)
+    count = dict.fromkeys(("float4 loads", "float2 loads", "crossing items",
+                           "float4 stores", "scalar stores"), 0)
+    stride = plan["blocks"] * plan["threads"]
+    k = np.arange(run)
+    for first in range(0, plan["items"], stride):
+        item = first + np.arange(stride)
+        item = item[item < plan["items"]]
+        e0 = item * run
+        d0, c0 = e0 // r, e0 % r
+        one_row = c0 + run <= r
+        src = np.clip(starts[d0], 0, hi) + c0
+        vec = one_row & ((base + src) % 2 == 0)
+        re = np.zeros((item.size, run), np.float32)
+        im = np.zeros((item.size, run), np.float32)
+        if vec.any():
+            assert ((8 * (base + src[vec])) % 16 == 0).all()
+            v = f[2 * src[vec, None] + np.arange(2 * run)]  # two float4
+            re[vec], im[vec] = v[:, 0::2], v[:, 1::2]
+        # float2 loads: in one row from src on; across a row's end from
+        # each sample's own row
+        e = e0[:, None] + k
+        live = ~vec[:, None] & (e < total)
+        dk = e // r
+        sk = np.clip(starts[np.minimum(dk, starts.size - 1)], 0, hi) + e % r
+        assert (sk[one_row] == src[one_row, None] + k).all()
+        rows_, ks = np.nonzero(live)
+        assert (sk[rows_, ks] < np.clip(starts[dk[rows_, ks]], 0, hi) + r).all()
+        re[rows_, ks] = f[2 * sk[rows_, ks]]
+        im[rows_, ks] = f[2 * sk[rows_, ks] + 1]
+        count["float4 loads"] += 2 * int(vec.sum())
+        count["float2 loads"] += int(live.sum())
+        count["crossing items"] += int((~one_row).sum())
+        full = e0 + run <= total
+        assert (e0 % run == 0).all()  # every float4 store 16-byte aligned
+        count["float4 stores"] += 2 * int(full.sum())
+        count["scalar stores"] += 2 * int((e[~full] < total).sum())
+        keep = e < total
+        outr[e[keep]] = re[keep]
+        outi[e[keep]] = im[keep]
+        np.add.at(writes, e[keep], 1)
+    d = starts.size
+    return {"outr": outr.reshape(d, r), "outi": outi.reshape(d, r),
+            "writes": writes, "count": count}
+
+
+@pytest.mark.parametrize("base", [0, 1])
+@pytest.mark.parametrize("r", [3, 808, 809, 1569, 24680])
+def test_k2_model_equals_plain(r, base):
+    """K2's thread plan (``fetch_cuda.fetch_plan``) copies bit for bit what
+    the plain version copies, at odd and even starts, 0 and T - R and
+    starts past either end; every output element is written exactly once;
+    both one-row load branches are taken, items cross a row's end only when
+    R % 4 != 0, and every store but a short last item's is a float4."""
+    rng = np.random.default_rng(r + base)
+    t, d = 2 * r + 1001, 9
+    x = (rng.standard_normal(t) + 1j * rng.standard_normal(t)).astype(np.complex64)
+    starts = np.concatenate([[0, 1, t - r, t - r - 1, -3, t + 7],
+                             2 * rng.integers(0, (t - r) // 2, d - 6) + (np.arange(d - 6) % 2)])
+    plan = fetch_cuda.fetch_plan(r, d)
+    assert plan["blocks"] * plan["threads"] >= plan["items"] == -(-d * r // fetch_cuda.RUN)
+    got = k2_model(x, base, starts, r, plan)
+    want = fetch_cuda.fetch_regions_plain(torch.from_numpy(x), torch.from_numpy(starts), r)
+    for g, w in zip((got["outr"], got["outi"]), want):
+        np.testing.assert_array_equal(g.view(np.int32), w.numpy().view(np.int32))
+    assert (got["writes"] == 1).all()
+    c = got["count"]
+    assert (c["float4 loads"] > 0) == (r >= fetch_cuda.RUN) and c["float2 loads"] > 0
+    assert (c["crossing items"] > 0) == (r % fetch_cuda.RUN != 0)
+    assert c["float4 stores"] == 2 * (d * r // fetch_cuda.RUN)
+    assert c["scalar stores"] == 2 * plan["tail"]
+
+
+@pytest.mark.parametrize("r", [3, 297, 1569])
+def test_k2b_model_equals_plain(r):
+    """K2b's plan (``fetch_cuda.rows_plan``): one thread an element of the
+    flat ``[D, R]`` output, row ``e // R``; bit for bit against the plain
+    version, every element written once."""
+    rng = np.random.default_rng(r)
+    t, d = 3 * r + 4099, 1536
+    x = rng.standard_normal(t).astype(np.float32)
+    starts = np.concatenate([[0, t - r, -1, t], rng.integers(0, t - r + 1, d - 4)])
+    plan = fetch_cuda.rows_plan(r, d)
+    e = np.arange(plan["blocks"] * plan["threads"])
+    e = e[e < plan["items"]]
+    row = e // r
+    out = np.zeros(d * r, np.float32)
+    out[e] = x[np.clip(starts[row], 0, t - r) + e - row * r]
+    assert np.array_equal(np.bincount(e, minlength=d * r), np.ones(d * r, np.int64))
+    want = fetch_cuda.fetch_rows_plain(torch.from_numpy(x), torch.from_numpy(starts), r)
+    np.testing.assert_array_equal(out.reshape(d, r), want.numpy())
+
+
+def test_k2_plan_constants_are_the_kernels():
+    """The plans' block size and run length are csrc/fetch.cu's."""
+    src = (Path(fetch_cuda.__file__).parents[1] / "csrc" / "fetch.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert consts == {"kThreads": str(fetch_cuda.THREADS), "kRun": str(fetch_cuda.RUN)}

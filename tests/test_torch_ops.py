@@ -211,6 +211,20 @@ def test_matched_filter_matches_pallas_and_reference(d, k, sps, s, short):
         np.testing.assert_allclose(outi.numpy(), wi, rtol=1e-5, atol=1e-4)
 
 
+def _fetch_against_jax(x: np.ndarray, starts: np.ndarray, r: int) -> None:
+    """The port's K2 on the complex64 bank ``x`` against the JAX
+    fetch_regions (interpret) on its I and Q planes: bit-exact. The JAX
+    function takes starts its caller clipped to ``[0, T - R]``; the port
+    clamps them itself."""
+    clipped = np.clip(starts, 0, x.size - r).astype(np.int32)
+    wr, wi = j_fetch(
+        jnp.asarray(x.real), jnp.asarray(x.imag), jnp.asarray(clipped), r, interpret=True,
+    )
+    gr, gi = fetch_regions(torch.from_numpy(x), torch.from_numpy(starts).long(), r)
+    np.testing.assert_array_equal(gr.numpy(), np.asarray(wr))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+
+
 @pytest.mark.parametrize("r", [1569, 808, 809, 24680])
 def test_fetch_exact_odd_starts(r):
     """Plain version of K2 vs fetch_regions (interpret): bit-exact at odd
@@ -218,16 +232,17 @@ def test_fetch_exact_odd_starts(r):
     rng = np.random.default_rng(r)
     t, d = 3 * r + 4099, 6
     x = (rng.standard_normal(t) + 1j * rng.standard_normal(t)).astype(np.complex64)
-    starts = np.concatenate(
-        [[1, t - r], 2 * rng.integers(0, (t - r) // 2, d - 2) + 1]
-    ).astype(np.int32)
-    wr, wi = j_fetch(
-        jnp.asarray(x.real), jnp.asarray(x.imag), jnp.asarray(starts), r,
-        interpret=True,
-    )
-    gr, gi = fetch_regions(
-        torch.from_numpy(x.real.copy()), torch.from_numpy(x.imag.copy()),
-        torch.from_numpy(starts).long(), r,
-    )
-    np.testing.assert_array_equal(gr.numpy(), np.asarray(wr))
-    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    starts = np.concatenate([[1, t - r], 2 * rng.integers(0, (t - r) // 2, d - 2) + 1])
+    _fetch_against_jax(x, starts, r)
+
+
+@pytest.mark.parametrize("r", [1569, 808, 809, 24680])
+def test_fetch_exact_even_starts(r):
+    """The same at even starts, start 0 and a window ending at the last
+    sample, and beside them starts past either end, which the port
+    clamps."""
+    rng = np.random.default_rng(r + 1)
+    t, d = 3 * r + 4100, 7
+    x = (rng.standard_normal(t) + 1j * rng.standard_normal(t)).astype(np.complex64)
+    starts = np.concatenate([[0, t - r, -5, t], 2 * rng.integers(0, (t - r) // 2, d - 4)])
+    _fetch_against_jax(x, starts, r)

@@ -153,12 +153,13 @@ def test_kernel_route_has_no_fallback():
 @pytest.mark.parametrize(
     "call",
     [
-        lambda: fetch_regions(torch.zeros(10, dtype=torch.float64), torch.zeros(10, dtype=torch.float64), torch.zeros(2, dtype=torch.int64), 4),
-        lambda: fetch_regions(torch.zeros(10), torch.zeros(10), torch.zeros(2, dtype=torch.int32), 4),
-        lambda: fetch_regions(torch.zeros(10), torch.zeros(10), torch.zeros(2, dtype=torch.int64), 11),
+        lambda: fetch_regions(torch.zeros(10), torch.zeros(2, dtype=torch.int64), 4),
+        lambda: fetch_regions(torch.zeros(10, dtype=torch.complex64), torch.zeros(2, dtype=torch.int32), 4),
+        lambda: fetch_regions(torch.zeros(10, dtype=torch.complex64), torch.zeros(2, dtype=torch.int64), 11),
         lambda: matched_filter(torch.zeros(2, 20), torch.zeros(3, 20), torch.zeros(2, 4), 4, 3),
         lambda: costas_track(torch.zeros(2, 8, dtype=torch.complex64), torch.zeros(3), torch.zeros(2)),
         lambda: ldpc_totals(torch.zeros(2, 128), torch.zeros(96, 5, dtype=torch.int64), torch.zeros(128, 3, dtype=torch.int32)),
+        lambda: fetch_regions(torch.zeros(20, dtype=torch.complex64)[::2], torch.zeros(2, dtype=torch.int64), 4),
     ],
 )
 def test_wrappers_reject_bad_inputs(call):
