@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's receive paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's receive and transmit paths once on one NVIDIA
+GPU.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -30,18 +31,36 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. slice: ``Receiver.bank_step`` at the bench geometry (64 channels of
    2**19 samples of back-to-back 1500-byte bursts, 9 frequency bins,
    1536-byte max payload, 24 detection slots, V&V payload carrier, fused
-   acquisition); every packet fully inside the block must decode
-   byte-exact, and every kernel must have been launched by that run. Then
-   the rate, the split by stage and the peak device memory. The same bank
-   step with fft acquisition runs second and must find the same
-   detections; with the Costas payload carrier third, where K4 runs the
-   header and the payload pass. Then one call of the single-channel
-   ``entry()`` step;
+   acquisition) as one batch (``group=0``); every packet fully inside the
+   block must decode byte-exact, and every kernel must have been launched
+   by that run. Then the rate, the split by stage and the peak device
+   memory. The same step in channel groups of 16 (``bank_step``'s default)
+   must give the same detections, flags and bytes. The bank step with fft
+   acquisition runs next and must find the same detections; then the
+   Costas payload carrier, where K4 runs the header and the payload pass,
+   at group 0 and at group 16 (the ``ch64_costas_g16`` configuration),
+   the two equal. Then one call of the single-channel ``entry()`` step;
 5. streaming: ``StreamingBank`` (64 channels, float32 and int8 wires) and
    ``StreamingReceiver`` fed whole 12-burst tiles as bench.py feeds them;
    every packet must come out exactly once, byte-exact, at its index, with
    no saturated block. Prints the sustained rate, the per-block host split
-   and the pinned host<->device bandwidth measured in the same process.
+   and the pinned host<->device bandwidth measured in the same process;
+6. taps: one ``StreamingReceiver`` with list sinks as header and payload
+   taps: every accepted packet sends 128 header symbols and ``4*(len+4)``
+   payload symbols, each message with MER above 20 dB;
+7. TX: ``tx_entry`` in burst and stream mode at 64 x 1500 bytes, with
+   PyTorch's default TF32 flags (phase 3's yardstick turns cuDNN's off and
+   restores it); the card's samples within 1e-5 of the same transmitter on
+   CPU tensors, lengths equal; samples/s from CUDA events over a loop,
+   with the host's time per call beside it;
+8. transceiver: ``transceiver_entry`` (24 x 1500-byte bursts, CFO 0.005,
+   noise 0.05, 4 frequency bins a side) must decode 24/24 byte-exact;
+   samples/s of the step and its split into TX, channel and RX. Then a
+   stream-mode loopback (14 packets of 10..1500 bytes, CFO 0.006) and the
+   SFO operating point (1.2 ppm, CFO 0.005), each decoding every packet.
+
+Each path runs with the launch counts set to 0 just before it and read
+just after; each path of the receiver must have launched every kernel.
 
 The stimulus is made in numpy by ``gr4_packet_modem_tpu_torch/utils/
 stimulus.py`` (the sequential per-packet transmitter of the tests, held bit
@@ -127,6 +146,56 @@ FLUSH_BYTES = 256 << 20
 _flush = []
 
 
+def loop_ms(torch, fn, reps: int = 10) -> tuple[float, float]:
+    """(device ms, host ms) per call of ``reps`` back-to-back calls after a
+    warm-up: CUDA events around the loop, and the host's time to issue
+    one call."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    b.synchronize()
+    return a.elapsed_time(b) / reps, host
+
+
+def median_ms(torch, fn, reps: int = 5) -> float:
+    """Median host time of ``reps`` calls, each ending in a synchronise,
+    after a warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def busy_ms(torch, fn, reps: int = 5) -> tuple[float, float]:
+    """(device busy ms, device operations) per call: torch.profiler's CUDA
+    events (kernels and copies) of ``reps`` back-to-back calls after a
+    warm-up, summed and divided by ``reps``; the L2 is left as the calls
+    leave it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(events), "the profiler saw no device work")
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps, len(events) / reps
+
+
 def timed(torch, fn, reps: int = 10, flush: bool = True) -> dict:
     """Per call of ``fn``: ``ms``, the device time with the L2 cold
     (torch.profiler: the time of every kernel the call launches, summed
@@ -141,18 +210,7 @@ def timed(torch, fn, reps: int = 10, flush: bool = True) -> dict:
     if not _flush:
         _flush.append(torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device="cuda"))
     scratch = _flush[0]
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    host = (time.perf_counter() - t0) * 1e3 / reps
-    b.synchronize()
-    loop = a.elapsed_time(b) / reps
+    loop, host = loop_ms(torch, fn, reps)
     cuda = torch.autograd.DeviceType.CUDA
     # a profiler session now and then misses its first kernel (seen on the
     # card: a flush), so each opens with a flush of its own; it counts only
@@ -266,6 +324,17 @@ def kernel_checks(torch, card: str, probes: dict) -> dict:
     K4 and K5 also at B=32 and with their chain floors (``probes``: the
     libraries of ``build_probe`` by name). Launches here are comparisons:
     they do not count as the main path's."""
+    # the yardstick convolution in full float32, as the kernel computes;
+    # the flag is restored for the later phases
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return _kernel_checks(torch, card, probes)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _kernel_checks(torch, card: str, probes: dict) -> dict:
     import torch.nn.functional as F
 
     from gr4_packet_modem_tpu_torch.entry import BENCH_BLOCK, BENCH_CHANNELS, BENCH_CONFIG
@@ -281,8 +350,6 @@ def kernel_checks(torch, card: str, probes: dict) -> dict:
     from gr4_packet_modem_tpu_torch.ops.matched_cuda import matched_filter, matched_filter_plain
     from gr4_packet_modem_tpu_torch.utils.stimulus import costas_symbols, ldpc_encode_bytes
 
-    # the yardstick convolution in full float32, as the kernel computes
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
     d = 1536  # 64 channels x 24 detection slots
@@ -573,16 +640,17 @@ def kernel_checks(torch, card: str, probes: dict) -> dict:
 # ------------------------------------------------------------------ slice
 
 
-def bank_run(torch, card: str, rx, x, expected, label: str) -> dict:
-    """One ``bank_step`` of ``x`` with the launch counts set to 0 just
+def bank_run(torch, card: str, rx, x, expected, label: str, group: int = 0):
+    """One ``bank_step(x, group)`` with the launch counts set to 0 just
     before it and read just after; the decode gate; then the rate, the
-    split by stage and the peak device memory."""
+    peak device memory and, for one batch (``group=0``), the split by
+    stage. Returns the numbers and the step's ``(det, res, keep)``."""
     from gr4_packet_modem_tpu_torch.ops import _build
 
     channels, block = x.shape[0], x.shape[1] - rx.front_pad - rx.pad_tail()
     _build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    det, hdr, res, keep = rx.bank_step(x)
+    det, hdr, res, keep = rx.bank_step(x, group)
     torch.cuda.synchronize()
     launches = _build.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -622,27 +690,32 @@ def bank_run(torch, card: str, rx, x, expected, label: str) -> dict:
         return d.esn0_db.sum().item() + h.phase.sum().item() + kp.sum().item()
 
     def full():
-        df, h, r, kp = rx.bank_step(x)
+        df, h, r, kp = rx.bank_step(x, group)
         return df.esn0_db.sum().item() + r.accepted.sum().item() + r.crc_ok.sum().item()
 
-    stages = {}
-    for name, fn in (("acquire", acquire), ("+headers", headers),
-                     ("+filter", filt), ("+payload", full)):
-        fn()
-        times = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        stages[name] = statistics.median(times)
+    stages = (("acquire", acquire), ("+headers", headers), ("+filter", filt), ("+payload", full))
+    stages = {name: median_ms(torch, fn) for name, fn in stages[0 if group == 0 else 3:]}
     rate = channels * block / (stages["+payload"] / 1e3)
     log(f"  {label}: stage times (cumulative, median of 5): "
         + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()) + f"  [{card}]")
-    log(f"  {label}: rate {rate:.4e} samples/s ({channels} ch x {block} samples per step)  [{card}]")
-    return {"det": det, "launches": launches, "stages_ms": stages, "rate_sps": rate,
-            "peak_bytes": peak, "packets": int(acc.sum())}
+    log(f"  {label}: rate {rate:.4e} samples/s ({channels} ch x {block} samples per step), "
+        f"group {group}  [{card}]")
+    return {"launches": launches, "stages_ms": stages, "rate_sps": rate, "group": group,
+            "peak_bytes": peak, "packets": int(acc.sum())}, (det, res, keep)
+
+
+def same_rows(torch, a, b, label: str) -> None:
+    """Two bank steps' ``(det, res, keep)`` give equal detections (index,
+    valid, freq_bin, overflow), flags and bytes."""
+    (da, ra, ka), (db, rb, kb) = a, b
+    for f in ("index", "valid", "freq_bin", "overflow"):
+        check(torch.equal(getattr(da, f), getattr(db, f)), f"{label}: detections differ in {f}")
+    for f in ("accepted", "crc_ok", "lengths", "data"):
+        check(torch.equal(getattr(ra, f), getattr(rb, f)), f"{label}: results differ in {f}")
+    check(torch.equal(ka, kb), f"{label}: keep differs")
+    log(f"  {label}: equal detections, keep, accepted, crc_ok, lengths and bytes on all "
+        f"{da.index.numel()} rows")
+
 
 
 def slice_run(torch, card: str) -> dict:
@@ -660,30 +733,35 @@ def slice_run(torch, card: str) -> dict:
     x[:, fp : fp + block] = torch.from_numpy(samples).to(dev)
     log(f"  bank {tuple(x.shape)} complex64, {len(expected)} packets per channel inside the block")
 
-    fused = bank_run(torch, card, rx, x, expected, "fused")
+    fused, fused_rows = bank_run(torch, card, rx, x, expected, "fused")
     for k in _build.KERNELS:
         check(fused["launches"][k] > 0, f"kernel {k} was not launched by the main path")
+    # channel groups of 16 (bank_step's default): four groups, one after another
+    fused16, rows16 = bank_run(torch, card, rx, x, expected, "fused group 16", group=16)
+    for k in _build.KERNELS:
+        check(fused16["launches"][k] > 0, f"kernel {k} was not launched by the group-16 step")
+    same_rows(torch, rows16, fused_rows, "fused group 16 against group 0")
+    del rows16
 
     # the fft backend as the second path, on the same bank
     rx_fft = Receiver(dataclasses.replace(BENCH_CONFIG, acquisition_backend="fft"), dev)
-    fft = bank_run(torch, card, rx_fft, x, expected, "fft")
+    fft, fft_rows = bank_run(torch, card, rx_fft, x, expected, "fft")
     check(fft["launches"]["correlate"] == 0, "the fft path launched the fused correlator")
     for k in _build.KERNELS:
         check(k == "correlate" or fft["launches"][k] > 0, f"kernel {k} was not launched by the fft path")
-    a, b = fused.pop("det"), fft.pop("det")
+    a, b = fused_rows[0], fft_rows[0]
     v = b.valid
     check(torch.equal(a.valid, v), "fused and fft detections differ in valid")
     for f in ("index", "freq_bin"):
         check(torch.equal(getattr(a, f)[v], getattr(b, f)[v]), f"fused and fft detections differ in {f}")
     log(f"  fused and fft detections equal on all {int(v.sum())} valid rows (index, valid, freq_bin)")
-    del rx_fft
+    del rx_fft, fused_rows, fft_rows, a, b
 
     # the Costas payload carrier (RxConfig's own default) on the same bank,
-    # fused acquisition, one plain batch: K4 runs the header and the
-    # payload pass
+    # fused acquisition: K4 runs the header and the payload pass. One
+    # batch, then groups of 16 (the ch64_costas_g16 configuration)
     rx_costas = Receiver(dataclasses.replace(BENCH_CONFIG, payload_carrier="costas"), dev)
-    costas = bank_run(torch, card, rx_costas, x, expected, "costas")
-    costas.pop("det")
+    costas, costas_rows = bank_run(torch, card, rx_costas, x, expected, "costas")
     check(costas["launches"]["costas"] == 2,
           f"costas carrier: K4 launched {costas['launches']['costas']} times in one step, not 2")
     for k in _build.KERNELS:
@@ -691,7 +769,17 @@ def slice_run(torch, card: str) -> dict:
     log(f"  costas carrier against V&V: +payload {costas['stages_ms']['+payload']:.2f} against "
         f"{fused['stages_ms']['+payload']:.2f} ms, rate {costas['rate_sps']:.4e} against "
         f"{fused['rate_sps']:.4e} samples/s  [{card}]")
-    del rx_costas
+    costas16, rows16 = bank_run(torch, card, rx_costas, x, expected, "costas group 16", group=16)
+    check(costas16["launches"]["costas"] == 8,
+          f"costas group 16: K4 launched {costas16['launches']['costas']} times, not 2 a group")
+    for k in _build.KERNELS:
+        check(costas16["launches"][k] > 0, f"kernel {k} was not launched by the Costas group-16 step")
+    same_rows(torch, rows16, costas_rows, "costas group 16 against group 0")
+    for name, g16, g0 in (("V&V", fused16, fused), ("costas", costas16, costas)):
+        log(f"  {name} group 16 against group 0: {g16['stages_ms']['+payload']:.2f} against "
+            f"{g0['stages_ms']['+payload']:.2f} ms, peak device memory {g16['peak_bytes'] / 2**30:.2f} "
+            f"against {g0['peak_bytes'] / 2**30:.2f} GiB  [{card}]")
+    del rx_costas, costas_rows, rows16
 
     # the single-channel entry() step once, on three bursts it can decode
     from gr4_packet_modem_tpu_torch.utils.stimulus import burst_samples
@@ -706,7 +794,8 @@ def slice_run(torch, card: str) -> dict:
     check(len(got) == len(pays) and all(np.array_equal(g, p) for g, p in zip(got, pays)),
           f"entry(): decoded {len(got)} of {len(pays)} packets")
     log(f"  entry(): decoded {len(got)}/{len(pays)} packets byte-exact")
-    return {"fused": fused, "fft": fft, "costas": costas}
+    return {"fused": fused, "fused_g16": fused16, "fft": fft, "costas": costas,
+            "costas_g16": costas16}
 
 
 # -------------------------------------------------------------- streaming
@@ -803,11 +892,174 @@ def streaming_phase(torch, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ taps, TX, transceiver
+
+LOOPBACK_LENGTHS = [10, 25, 100, 1500, 27, 38, 243, 514, 1500, 1500, 1024, 1024, 42, 34]
+
+
+class ListSink:
+    """A tap sink that keeps its messages."""
+
+    def __init__(self):
+        self.msgs = []
+
+    def send(self, pdu):
+        self.msgs.append(np.asarray(pdu))
+
+
+def path_launches(torch, label: str, fn, need=()):
+    """Run ``fn`` with the launch counts set to 0 just before it and read
+    just after; every kernel named in ``need`` must have been launched."""
+    from gr4_packet_modem_tpu_torch.ops import _build
+
+    _build.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    log(f"  {label}: launches {launches}")
+    for k in need:
+        check(launches[k] > 0, f"kernel {k} was not launched by {label}")
+    return out, launches
+
+
+def decoded(res) -> list[np.ndarray]:
+    acc, lens, data = (t.cpu().numpy() for t in (res.accepted, res.lengths, res.data))
+    return [data[i, : lens[i]] for i in np.nonzero(acc)[0]]
+
+
+def check_all(got, payloads, label: str) -> None:
+    check(len(got) == len(payloads), f"{label}: decoded {len(got)} of {len(payloads)} packets")
+    for i, (g, p) in enumerate(zip(got, payloads)):
+        check(np.array_equal(g, p), f"{label}: packet {i} differs")
+    log(f"  {label}: decoded {len(got)}/{len(payloads)} packets byte-exact")
+
+
+def taps_phase(torch, card: str, dev) -> dict:
+    """``StreamingReceiver`` with list sinks as its header and payload taps,
+    on bursts from the port's transmitter on the card."""
+    from gr4_packet_modem_tpu_torch.models.receiver import RxConfig
+    from gr4_packet_modem_tpu_torch.models.transmitter import Transmitter, TxConfig
+    from gr4_packet_modem_tpu_torch.ops import _build
+    from gr4_packet_modem_tpu_torch.runtime.streaming import StreamingReceiver, StreamingTransmitter
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from plot_symbols import mer_db  # the monitor's MER: signal over error-vector power
+
+    payloads = [(np.arange(n) % 256).astype(np.uint8) for n in (100, 1500, 200, 37)]
+    sig = StreamingTransmitter(Transmitter(TxConfig(max_payload_len=1536), dev)).send_burst(payloads)
+    hdr, pay = ListSink(), ListSink()
+    srx = StreamingReceiver(RxConfig(max_payload_len=1536, max_detections=8), dev, block=1 << 16,
+                            header_tap=hdr, payload_tap=pay)
+    pkts, launches = path_launches(torch, "taps", lambda: srx.process(sig) + srx.flush(), _build.KERNELS)
+    check_all([p.data for p in pkts], payloads, "taps")
+    check([m.size for m in hdr.msgs] == [128] * len(payloads), f"taps: header messages {[m.size for m in hdr.msgs]}")
+    want = [4 * (p.size + 4) for p in payloads]
+    check([m.size for m in pay.msgs] == want, f"taps: payload messages {[m.size for m in pay.msgs]}, not {want}")
+    mers = [mer_db(m) for m in hdr.msgs + pay.msgs]
+    check(all(m.dtype == np.complex64 for m in hdr.msgs + pay.msgs), "taps: a message is not complex64")
+    check(min(mers) > 20.0, f"taps: MER {min(mers):.1f} dB <= 20 dB")
+    log(f"  taps: {len(hdr.msgs)} header and {len(pay.msgs)} payload messages, MER "
+        f"{min(mers):.1f}..{max(mers):.1f} dB  [{card}]")
+    return {"launches": launches, "mer_db": [min(mers), max(mers)]}
+
+
+def tx_phase(torch, card: str, dev, tf32_defaults: tuple) -> dict:
+    """``tx_entry`` on the card against the same entry on CPU tensors, then
+    its rate."""
+    from gr4_packet_modem_tpu_torch.entry import tx_entry
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    check(flags == tf32_defaults, f"TX: TF32 flags {flags}, not the defaults {tf32_defaults}")
+    log(f"  TF32 flags (cuBLAS, cuDNN) at PyTorch's defaults: {flags}")
+    out = {}
+    for mode in ("burst", "stream"):
+        fn, (b,) = tx_entry(dev, stream=mode == "stream")
+        (samples, lens), launches = path_launches(torch, f"tx_{mode}", lambda: fn(b))
+        cfn, (cb,) = tx_entry("cpu", stream=mode == "stream")
+        want, want_lens = cfn(cb)
+        check(torch.equal(lens.cpu(), want_lens), f"tx_{mode}: lengths differ from the CPU's")
+        err = (samples.cpu() - want).abs().max().item()
+        check(err <= 1e-5, f"tx_{mode}: samples {err:.3e} from the CPU's (> 1e-5)")
+        n = int(lens.sum())  # the bursts' own samples, as the benchmark counts them
+        ms, host = loop_ms(torch, lambda: fn(b), reps=20)
+        busy, ops = busy_ms(torch, lambda: fn(b))
+        log(f"  tx_{mode}: {b.batch} x 1500 B -> {n} samples, max |card - CPU| {err:.3e}; "
+            f"{ms:.4f} ms a call (CUDA events over 20 calls), host {host:.4f} ms a call, "
+            f"device busy {busy:.4f} ms in {ops:.0f} operations a call, "
+            f"{n / (ms / 1e3):.4e} samples/s  [{card}]")
+        out[f"tx_{mode}"] = {"samples": n, "max_abs_err": err, "ms": ms, "host_ms": host,
+                             "busy_ms": busy, "device_ops": ops,
+                             "samples_per_s": n / (ms / 1e3), "launches": launches}
+    return out
+
+
+def transceiver_phase(torch, card: str, dev) -> dict:
+    """``transceiver_entry`` (24 x 1500 B, 4 bins a side): decode gate,
+    rate and split; then a stream-mode loopback and the SFO operating
+    point."""
+    from gr4_packet_modem_tpu_torch.entry import transceiver_entry
+    from gr4_packet_modem_tpu_torch.models.channel import awgn, rotate, sfo
+    from gr4_packet_modem_tpu_torch.models.transmitter import Transmitter, TxConfig
+    from gr4_packet_modem_tpu_torch.ops import _build
+    from gr4_packet_modem_tpu_torch.utils import constants as C
+    from gr4_packet_modem_tpu_torch.utils.ragged import PacketBatch, ragged_concat
+
+    fn, (packets, gen) = transceiver_entry(dev, bins=4, batch=24)
+    (n, res), launches = path_launches(torch, "transceiver_4bins", lambda: fn(packets, gen), _build.KERNELS)
+    check(int(n) == 24, f"transceiver_4bins: accepted {int(n)} of 24")
+    check_all(decoded(res), packets.to_list(), "transceiver_4bins")
+    stream = fn.transmit(packets)
+    x = fn.channel(stream, gen)
+    split = {
+        "step": median_ms(torch, lambda: fn(packets, gen)[0].item()),
+        "tx": median_ms(torch, lambda: fn.transmit(packets)),
+        "channel": median_ms(torch, lambda: fn.channel(stream, gen)),
+        "rx": median_ms(torch, lambda: fn.receive(x).accepted.sum().item()),
+    }
+    rate = fn.total / (split["step"] / 1e3)
+    busy = {name: busy_ms(torch, f) for name, f in (
+        ("step", lambda: fn(packets, gen)), ("tx", lambda: fn.transmit(packets)),
+        ("channel", lambda: fn.channel(stream, gen)), ("rx", lambda: fn.receive(x)))}
+    log(f"  transceiver_4bins: {fn.total} samples a step, {rate:.4e} samples/s; median of 5: step "
+        f"{split['step']:.2f} ms = TX {split['tx']:.2f} + channel {split['channel']:.2f} + RX "
+        f"{split['rx']:.2f} ms  [{card}]")
+    log("  transceiver_4bins: device busy (ms, operations) a call: "
+        + ", ".join(f"{k} {v[0]:.3f} in {v[1]:.0f}" for k, v in busy.items()) + f"  [{card}]")
+    out = {"transceiver_4bins": {"launches": launches, "ms": split, "samples_per_s": rate,
+                                 "samples": fn.total, "busy_ms": {k: v[0] for k, v in busy.items()},
+                                 "device_ops": {k: v[1] for k, v in busy.items()}}}
+
+    payloads = [(np.arange(m) % 256).astype(np.uint8) for m in LOOPBACK_LENGTHS]
+    batch = PacketBatch.from_list(payloads, 1536, dev)
+    rx = fn.rx
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def stream_loopback():
+        tx = Transmitter(TxConfig(max_payload_len=1536, stream_mode=True), dev)
+        syms = sum(C.stream_symbols(p.size) for p in payloads) + 16  # FIR flush
+        return rx.receive(awgn(rotate(tx.modulate_stream(batch, syms)[1], 0.006), 0.05, g))
+
+    def sfo_loopback():
+        samples, lens = fn.tx.modulate_bursts(batch)
+        burst = ragged_concat(samples, lens, 4 * sum(C.burst_symbols(p.size) for p in payloads))[0]
+        return rx.receive(awgn(rotate(sfo(burst, 1.2), 0.005), 0.05, g))
+
+    for label, run in (("loopback stream CFO 0.006", stream_loopback),
+                       ("loopback SFO 1.2 ppm CFO 0.005", sfo_loopback)):
+        res, launches = path_launches(torch, label, run, _build.KERNELS)
+        check_all(decoded(res), payloads, label)
+        out[label] = {"launches": launches, "packets": len(payloads)}
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "gr4_packet_modem_tpu_torch")):
         raise SystemExit("chip_smoke: gr4_packet_modem_tpu_torch/ is missing: run it from a checkout of the repo")
     sys.path.insert(0, ROOT)
     import torch
+
+    t_start = time.perf_counter()
+    tf32_defaults = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
 
     # phase 1: device
     if not torch.cuda.is_available():
@@ -846,6 +1098,17 @@ def main() -> int:
     # phase 5: the streaming drivers
     log("streaming:")
     stres = streaming_phase(torch, card)
+
+    # phases 6-8: the symbol taps, the transmitter, the transceiver
+    log("taps:")
+    dev = torch.device("cuda")
+    tapres = taps_phase(torch, card, dev)
+    log("tx:")
+    txres = tx_phase(torch, card, dev, tf32_defaults)
+    log("transceiver:")
+    trxres = transceiver_phase(torch, card, dev)
+    import gr4_packet_modem_tpu_torch.io.zmq_pub  # noqa: F401  (the taps' publisher, no pyzmq here)
+
     check("jax" not in sys.modules, "jax was imported")
     jax_package = sorted(m for m in sys.modules if m.split(".")[0] == "gr4_packet_modem_tpu")
     check(not jax_package, f"modules of the JAX package were imported: {jax_package}")
@@ -862,7 +1125,9 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "kernel_rows": kres["rows"],
                    "launch_floor_ms": kres["launch_floor_ms"], "slice": sres,
-                   "streaming": stres}, f, indent=1)
+                   "streaming": stres, "taps": tapres, "tx": txres, "transceiver": trxres,
+                   "seconds": time.perf_counter() - t_start}, f, indent=1)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,14 +16,18 @@ The receive chain runs as feed-forward passes over a sample buffer:
 
 A bank ``[C, N]`` runs acquisition batched over channels and both decode
 passes as one flat batch of all channels' detections; suppression stays
-per channel. The whole bank runs as one batch (no channel groups): at the
-bench geometry (64 channels of 553,396 samples) its working set fits the
-card's memory.
+per channel. ``bank_step(x, group)`` runs the channels in groups of
+``group`` one after another (the JAX package's rule and default, 16),
+each group a contiguous row slice of the bank, and merges the groups' rows
+back into the one-batch order: acquisition and suppression are per
+channel, so every group size gives the same result. Groups bound the
+working set; at the bench geometry (64 channels of 553,396 samples) one
+batch fits the card's memory as well.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
@@ -47,6 +51,7 @@ from .tables import receiver_tables, tables_from_numpy
 __all__ = [
     "RxConfig", "Receiver", "HeaderResult", "PayloadResult",
     "packet_extent_samples", "suppress_overlapping", "flatten_detections",
+    "flatten_grouped_results",
 ]
 
 _HEADER_REGION_SYMS = C.SYNCWORD_LEN + C.HEADER_SYMBOLS  # 192
@@ -113,6 +118,9 @@ class RxConfig:
     # (reference behaviour); "vv" = feed-forward block Viterbi&Viterbi
     payload_carrier: str = "costas"
     vv_block: int = 64                # V&V averaging block (symbols)
+    # keep the corrected payload symbols in PayloadResult.symbols (for the
+    # symbol taps of StreamingReceiver, packet_receiver.hpp:159-189)
+    keep_payload_symbols: bool = False
 
     def __post_init__(self):
         if self.payload_carrier not in ("costas", "vv"):
@@ -158,6 +166,24 @@ class PayloadResult:
     lengths: torch.Tensor   # int64 [D]
     crc_ok: torch.Tensor    # bool [D]
     accepted: torch.Tensor  # bool [D] kept & header & crc & user-data type
+    symbols: torch.Tensor   # float32 [D, S, 2] corrected payload symbols as
+    #                         I/Q ([D, 0, 2] unless keep_payload_symbols)
+
+
+def flatten_grouped_results(parts: list[tuple]) -> tuple:
+    """Merge per-group ``(det, hdr, res, keep)`` of :meth:`Receiver.
+    decode_bank`, in group order, into one ``(det, hdr, res, keep)`` with
+    rows group-major, then channel-major within a group: the row order of
+    one batch. ``overflow`` is any group's."""
+    def merge(name, vals):
+        return torch.stack(vals).any() if name == "overflow" else torch.cat(vals)
+
+    def cat(objs):
+        cls = type(objs[0])
+        return cls(*(merge(f.name, [getattr(o, f.name) for o in objs]) for f in fields(cls)))
+
+    dets, hdrs, ress, keeps = zip(*parts)
+    return cat(dets), cat(hdrs), cat(ress), torch.cat(keeps)
 
 
 class Receiver(nn.Module):
@@ -398,11 +424,20 @@ class Receiver(nn.Module):
         res = self.decode_payloads(x, detf, hdr, keep, chan)
         return detf, hdr, res, keep
 
-    def bank_step(self, x: torch.Tensor):
+    def bank_step(self, x: torch.Tensor, group: int = 16):
         """Acquire (batched over channels) and decode a bank ``[C, N]``.
-        Returns ``(det_flat, hdr, res, keep)`` as :meth:`decode_bank`."""
-        det = self.acquirer.acquire(x)
-        return self.decode_bank(x, det)
+        Returns ``(det_flat, hdr, res, keep)`` as :meth:`decode_bank`.
+
+        With ``0 < group < C`` and ``C % group == 0`` the channels run in
+        groups of ``group``, one after another, each a contiguous row slice
+        of ``x``; otherwise (``group=0`` among them) as one batch. The rows
+        come out in the same order either way."""
+        c = x.shape[0]
+        if not (0 < group < c and c % group == 0):
+            return self.decode_bank(x, self.acquirer.acquire(x))
+        return flatten_grouped_results([
+            self.decode_bank(g, self.acquirer.acquire(g)) for g in x.split(group)
+        ])
 
     # -------------------------------------------- feed-forward carrier track
 
@@ -491,27 +526,39 @@ class Receiver(nn.Module):
             & crc_ok
             & (hdr.packet_type == int(C.PacketType.USER_DATA))
         )
+        if cfg.keep_payload_symbols:
+            symbols = torch.view_as_real(corrected)
+        else:
+            symbols = corrected.new_zeros(corrected.shape[0], 0, 2, dtype=torch.float32)
         return PayloadResult(
-            data=payload, lengths=plen, crc_ok=crc_ok, accepted=accepted
+            data=payload, lengths=plen, crc_ok=crc_ok, accepted=accepted,
+            symbols=symbols,
         )
 
     # -------------------------------------------------------------- high level
 
-    def pad(self, samples: np.ndarray) -> torch.Tensor:
+    def pad(self, samples: np.ndarray | torch.Tensor) -> torch.Tensor:
         """``front_pad`` zeros + samples + ``pad_tail()`` zeros, as a
-        complex64 tensor on the receiver's device."""
-        x = np.zeros(
-            self.front_pad + len(samples) + self.pad_tail(), np.complex64
-        )
-        x[self.front_pad : self.front_pad + len(samples)] = samples
-        return torch.from_numpy(x).to(self.arm_taps.device)
+        complex64 tensor on the receiver's device. ``samples`` is a numpy
+        array, or a tensor on that device (padded there, with no trip
+        through the host)."""
+        dev = self.arm_taps.device
+        if isinstance(samples, torch.Tensor):
+            if samples.device != dev:
+                raise ValueError(f"samples on {samples.device}, the receiver on {dev}")
+            body = samples.to(torch.complex64)
+        else:
+            body = torch.from_numpy(np.asarray(samples, np.complex64)).to(dev)
+        return torch.cat([
+            body.new_zeros(self.front_pad), body, body.new_zeros(self.pad_tail()),
+        ])
 
-    def receive(self, samples: np.ndarray) -> PayloadResult:
-        """One-shot receive over a full capture: pad, acquire, decode
-        headers, suppress overlapping detections, decode payloads. Rows are
-        aligned with the sorted detections; ``accepted`` marks decoded user
-        packets."""
-        x = self.pad(np.asarray(samples, np.complex64))
+    def receive(self, samples: np.ndarray | torch.Tensor) -> PayloadResult:
+        """One-shot receive over a full capture (numpy, or a complex tensor
+        on the receiver's device): pad, acquire, decode headers, suppress
+        overlapping detections, decode payloads. Rows are aligned with the
+        sorted detections; ``accepted`` marks decoded user packets."""
+        x = self.pad(samples)
         det = self.acquirer.acquire(x)
         hdr, _ = self.decode_headers(x, det)
         keep = self.filter_detections(det, hdr)

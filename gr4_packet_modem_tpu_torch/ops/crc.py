@@ -22,7 +22,7 @@ import torch
 
 from ..utils import constants as C
 
-__all__ = ["crc32_tables", "crc32_compute"]
+__all__ = ["crc32_tables", "crc32_compute", "crc_bytes_be"]
 
 
 def _reflect32(word: int) -> int:
@@ -117,3 +117,11 @@ def crc32_compute(
     sel = (bits == 1) & valid[..., None]
     crc_raw = _xor_reduce(torch.where(sel, words, 0).reshape(b, -1))
     return crc_raw ^ init_lut[n] ^ final_xor
+
+
+def crc_bytes_be(crc: torch.Tensor) -> torch.Tensor:
+    """CRC words ``[B]`` -> their four big-endian bytes, uint8 ``[B, 4]``
+    (the order of CrcAppend with swap_endianness=false,
+    crc_append.hpp:175-183)."""
+    shifts = torch.tensor([24, 16, 8, 0], device=crc.device)
+    return ((crc.to(torch.int64)[:, None] >> shifts) & 0xFF).to(torch.uint8)

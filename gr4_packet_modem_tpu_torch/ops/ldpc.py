@@ -1,7 +1,9 @@
-"""Header LDPC (128,32) decoding: tables, repetition combining, the plain
-min-sum decoder and the hard decision.
+"""Header LDPC (128,32) code: the encoder, and for decoding the tables,
+repetition combining, the plain min-sum decoder and the hard decision.
 
-Port of the decoding half of ``gr4_packet_modem_tpu/ops/ldpc.py``. The
+Port of ``gr4_packet_modem_tpu/ops/ldpc.py``. The encoder works in exact
+integer GF(2) arithmetic (AND, then the parity of a sum), where the JAX
+package takes a float32 product. The
 decoder is flooding normalised min-sum over a dense padded ``[96, 5]`` edge
 table (the 96 checks have degree 3 to 5). :func:`ldpc_totals_plain` is the
 counterpart of the JAX scan decoder (``HeaderLdpcDecoder.decode``) and the
@@ -21,9 +23,39 @@ import torch
 from ..utils import constants as C
 
 __all__ = [
-    "load_parity_check", "decoder_tables", "edge_tables",
+    "load_generator", "encode_header", "load_parity_check", "decoder_tables", "edge_tables",
     "combine_repetition", "ldpc_totals_plain", "finish",
 ]
+
+
+@lru_cache(maxsize=1)
+def load_generator() -> np.ndarray:
+    """Codeword-from-info GF(2) matrix ``[128, 32]`` uint8 (read-only).
+
+    Codeword = [info(32) | parity(96)]; parity r = parity(info & gen[r])
+    with the u32 rows of this package's ``data/header_ldpc_generator.npy``
+    applied MSB-first (header_fec_encoder.hpp:97-111)."""
+    with (resources.files("gr4_packet_modem_tpu_torch.data") / "header_ldpc_generator.npy").open("rb") as f:
+        gen = np.load(f)
+    k = C.HEADER_LDPC_K
+    g = np.zeros((C.HEADER_LDPC_N, k), dtype=np.uint8)
+    g[:k] = np.eye(k, dtype=np.uint8)
+    rows = gen[: C.HEADER_LDPC_N - k].astype(np.uint64)
+    g[k:] = (rows[:, None] >> np.arange(k - 1, -1, -1, dtype=np.uint64)[None, :]) & 1
+    g.flags.writeable = False
+    return g
+
+
+def encode_header(header_bits: torch.Tensor, generator: torch.Tensor | None = None) -> torch.Tensor:
+    """Header info bits ``[B, 32]`` (MSB-first, 0/1) -> coded bits uint8
+    ``[B, 256]``: the (128,32) codeword followed by its repetition
+    (header_fec_encoder.hpp:93-115). ``generator`` is :func:`load_generator`
+    as a tensor on the bits' device (built from it when None)."""
+    if generator is None:
+        generator = torch.from_numpy(load_generator().copy()).to(header_bits.device)
+    prod = header_bits.to(torch.int64)[:, None, :] & generator.to(torch.int64)[None]
+    cw = (prod.sum(dim=-1) & 1).to(torch.uint8)  # [B, 128]
+    return torch.cat([cw, cw], dim=-1)
 
 
 @lru_cache(maxsize=1)

@@ -1,9 +1,10 @@
-"""Additive scrambler keystream (port of ``gr4_packet_modem_tpu/ops/
-scramble.py::keystream``).
+"""Additive scrambler (port of ``gr4_packet_modem_tpu/ops/scramble.py``:
+``keystream`` and ``scramble_bits``).
 
 The scrambler restarts at every packet, so every packet sees the same fixed
-bit sequence; it comes from the JAX package's numpy LFSR
-(``utils/lfsr.py``) and is applied as a sign flip of soft values.
+bit sequence; it comes from this package's numpy LFSR (``utils/lfsr.py``)
+and is applied as an XOR of hard bits (transmit) or a sign flip of soft
+values (receive).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 from ..utils.lfsr import additive_scrambler_keystream
 
-__all__ = ["keystream", "keystream_np"]
+__all__ = ["keystream", "keystream_np", "scramble_bits"]
 
 
 @lru_cache(maxsize=8)
@@ -29,3 +30,13 @@ def keystream_np(num_bits: int) -> np.ndarray:
 def keystream(num_bits: int, device: str | torch.device) -> torch.Tensor:
     """First ``num_bits`` keystream bits as a uint8 tensor on ``device``."""
     return torch.tensor(keystream_np(num_bits), device=device)
+
+
+def scramble_bits(bits: torch.Tensor, ks: torch.Tensor | None = None) -> torch.Tensor:
+    """XOR hard bits ``[..., N]`` with the keystream restarted at bit 0.
+    ``ks`` holds at least N keystream bits on the bits' device (made from
+    :func:`keystream_np` when None)."""
+    n = bits.shape[-1]
+    if ks is None:
+        ks = keystream(n, bits.device)
+    return bits ^ ks[:n].to(bits.dtype)

@@ -1,7 +1,8 @@
-"""Streaming drivers: block-wise receive with carried state.
+"""Streaming drivers: block-wise receive and transmit with carried state.
 
-Port of ``StreamingReceiver`` and ``StreamingBank`` of
-``gr4_packet_modem_tpu/runtime/streaming.py``. A host loop feeds fixed-size
+Port of ``StreamingReceiver``, ``StreamingBank``, ``PacketToStream`` and
+``StreamingTransmitter`` of ``gr4_packet_modem_tpu/runtime/streaming.py``.
+A host loop feeds fixed-size
 sample blocks through the receiver over a sliding device buffer of
 ``front_pad + block + pad_tail`` samples per channel, so packets crossing a
 block boundary decode exactly once: only syncword starts in the buffer's
@@ -22,13 +23,22 @@ The sliding buffer is two device buffers in ping-pong: each step writes the
 shifted old buffer and the new block into the other one (an in-place
 overlapping shift is not safe).
 
-Not ported yet: the ZMQ header/payload symbol taps (with
-``keep_payload_symbols``), ``StreamingShardedBank``, and the transmit side
-(``StreamingTransmitter``, ``PacketToStream``).
+``StreamingReceiver(header_tap=, payload_tap=)`` publishes the corrected
+header and payload symbols of every accepted packet to sinks with a
+``send(np.ndarray)`` method (``io/zmq_pub.py``), the monitoring taps of
+packet_receiver.hpp:159-189; the symbols cross to the host only when a tap
+is set.
+
+On the transmit side, ``StreamingTransmitter`` carries the GLFSR packet
+index and the stream-mode FIR history across calls, and ``PacketToStream``
+turns bursts into a constant-rate stream on the host.
+
+Not ported yet: ``StreamingShardedBank`` (multi-GPU).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 import warnings
@@ -44,11 +54,15 @@ from ..models.receiver import (
     packet_extent_samples,
     suppress_overlapping,
 )
+from ..models.transmitter import Transmitter
+from ..ops.fir import stream_interpolating_fir
+from ..utils import constants as C
 from ..utils.cplx import planes_to_complex, to_transfer_planes, wire_dtype
+from ..utils.ragged import PacketBatch, ragged_concat
 
 __all__ = [
-    "StreamingReceiver", "StreamingBank", "DecodedPacket", "pack_result_wire",
-    "unpack_result_wire", "wire_slots", "wire_bytes",
+    "StreamingReceiver", "StreamingBank", "StreamingTransmitter", "PacketToStream",
+    "DecodedPacket", "pack_result_wire", "unpack_result_wire", "wire_slots", "wire_bytes",
 ]
 
 _WIRE_META_FIELDS = 9
@@ -195,6 +209,9 @@ class StreamingBank:
     line per packet.
     """
 
+    header_tap = None  # symbol sinks (StreamingReceiver)
+    payload_tap = None
+
     def __init__(
         self,
         config: RxConfig,
@@ -263,7 +280,7 @@ class StreamingBank:
         dd = rx.config.max_detections
         det = rx.acquirer.acquire(buf, fresh_lo=self.fp, fresh_hi=self.fp + self.block)
         detf, chan = flatten_detections(det)
-        hdr, _ = rx.decode_headers(buf, detf, chan)
+        hdr, hdr_syms = rx.decode_headers(buf, detf, chan)
         extent = packet_extent_samples(
             hdr.packet_length, hdr.header_ok, rx.config.samples_per_symbol
         )
@@ -271,14 +288,21 @@ class StreamingBank:
             det.index, det.valid, extent.view(-1, dd), busy0
         )
         res = rx.decode_payloads(buf, detf, hdr, keep.reshape(-1), chan)
-        return (
+        out = (
             detf.index, res.lengths, hdr.packet_type, detf.esn0_db, detf.freq,
             hdr.arm, res.accepted, res.data, detf.overflow, busy_end,
         )
+        return out + ((hdr_syms, res.symbols) if self._with_syms else ())
 
-    def _step(self, planes: torch.Tensor) -> torch.Tensor:
+    @property
+    def _with_syms(self) -> bool:
+        return self.header_tap is not None or self.payload_tap is not None
+
+    def _step(self, planes: torch.Tensor):
         """Slide the buffer by one block of wire planes ``[2, C, ...]``,
-        decode, carry the suppression state; returns the packed results."""
+        decode, carry the suppression state; returns the packed results and,
+        when a tap is set, the rows' header symbols ``[rows, 192]`` and
+        payload symbol planes ``[rows, S, 2]`` (else None)."""
         chunk = planes_to_complex(planes, packed_int4=self.transfer_dtype == "int4")
         b = self.block
         src, buf = self._bufs[self._cur], self._bufs[1 - self._cur]
@@ -290,16 +314,16 @@ class StreamingBank:
             self._decode_group(buf[i : i + g], self._busy[i : i + g])
             for i in range(0, self.channels, g)
         ]
-        idx, lens, types, esn0, freq, arm, acc, data, ovf, busy_end = (
-            torch.stack(o) if o[0].ndim == 0 else torch.cat(o) for o in zip(*outs)
-        )
+        merged = [torch.stack(o) if o[0].ndim == 0 else torch.cat(o) for o in zip(*outs)]
+        idx, lens, types, esn0, freq, arm, acc, data, ovf, busy_end = merged[:10]
         # busy state pre-shifted into the next block's coordinates
         self._busy = (busy_end - b).clamp(min=_IDLE_BUSY)
         chan = torch.arange(idx.shape[0], device=idx.device) // self.rx.config.max_detections
-        return pack_result_wire(
+        packed = pack_result_wire(
             idx, lens, types, esn0, freq, arm, chan, acc, data, ovf.any(),
             self.result_budget,
         )
+        return packed, (tuple(merged[10:]) or None)
 
     # ------------------------------------------------------------------ feed
 
@@ -358,9 +382,9 @@ class StreamingBank:
 
         t0 = time.perf_counter()
         self._abs_offset += self.block
-        packed = self._step(planes)
+        packed, syms = self._step(planes)
         self._wire[i].copy_(packed, non_blocking=True)
-        self._inflight.append((i, self._record(), self._abs_offset))
+        self._inflight.append((i, self._record(), self._abs_offset, syms))
         self.stats["dispatch_s"] += time.perf_counter() - t0
         self.stats["blocks"] += 1
         out: list[DecodedPacket] = []
@@ -401,7 +425,7 @@ class StreamingBank:
 
     def _materialize(self, inflight) -> list[DecodedPacket]:
         t0 = time.perf_counter()
-        i, done, abs_offset = inflight
+        i, done, abs_offset, syms = inflight
         if done is not None:
             done.synchronize()
         k = wire_slots(self._rows, self.result_budget)
@@ -425,24 +449,51 @@ class StreamingBank:
             )
             if self.log:
                 _log_packet(out[-1])
+        if out and syms is not None:
+            self._send_taps(slots, syms)
         self.stats["materialize_s"] += time.perf_counter() - t0
         return out
+
+    def _send_taps(self, slots: dict, syms: tuple[torch.Tensor, torch.Tensor]) -> None:
+        """For each accepted slot, in order: the 128 header symbols after
+        the syncword to ``header_tap``, then the first ``4*(len+4)`` payload
+        symbols to ``payload_tap``, complex64, taken from the slot's
+        pre-compaction decode row."""
+        hs = syms[0].cpu().numpy() if self.header_tap is not None else None
+        ps = syms[1].cpu().numpy() if self.payload_tap is not None else None
+        for i in np.nonzero(slots["accepted"])[0]:
+            r = int(slots["row"][i])
+            if hs is not None:
+                self.header_tap.send(hs[r, C.SYNCWORD_LEN :].copy())
+            if ps is not None:
+                n_syms = 4 * (int(slots["length"][i]) + C.CRC_NUM_BYTES)
+                self.payload_tap.send(ps[r, :n_syms].copy().view(np.complex64)[:, 0])
 
 
 class StreamingReceiver(StreamingBank):
     """Block-streaming wrapper around the receiver for one channel: a
-    :class:`StreamingBank` of one channel that takes ``[n]`` samples."""
+    :class:`StreamingBank` of one channel that takes ``[n]`` samples.
+
+    ``header_tap`` and ``payload_tap`` are sinks with a
+    ``send(np.ndarray)`` method (e.g. ``io.zmq_pub.ZmqPduPubSink``); each
+    accepted packet sends its corrected header and payload symbols there.
+    A payload tap turns ``keep_payload_symbols`` on."""
 
     def __init__(
         self,
         config: RxConfig,
         device: str | torch.device,
         block: int = 1 << 18,
+        header_tap=None,
+        payload_tap=None,
         transfer_dtype=None,
         pipeline_depth: int = 2,
         result_budget: int | None = None,
         log: bool = False,
     ):
+        self.header_tap, self.payload_tap = header_tap, payload_tap
+        if payload_tap is not None and not config.keep_payload_symbols:
+            config = dataclasses.replace(config, keep_payload_symbols=True)
         super().__init__(
             config, device, channels=1, block=block, transfer_dtype=transfer_dtype,
             pipeline_depth=pipeline_depth, group=0, result_budget=result_budget,
@@ -456,3 +507,123 @@ class StreamingReceiver(StreamingBank):
         if x.ndim != 1:
             raise ValueError(f"expected [n] samples, got {x.shape}")
         return self._feed(x[None])
+
+
+class PacketToStream:
+    """Burst -> continuous-stream converter with zero fill when starved
+    (packet_to_stream.hpp:17-45), on the host: ``pull(n)`` always returns
+    exactly ``n`` samples for a constant-rate DAC. Queued bursts are
+    emitted back to back; when the queue runs dry *between* packets the
+    output is zero-filled, but zeros are never inserted mid-packet.
+    ``on_packet`` mirrors the optional ``count`` port (one call per burst
+    that starts crossing, with the running total)."""
+
+    def __init__(self, on_packet=None):
+        self._queue: list[np.ndarray] = []
+        self._current: np.ndarray | None = None
+        self._pos = 0
+        self._packet_count = 0
+        self.on_packet = on_packet
+        self.zeros_inserted = 0
+
+    def push(self, burst: np.ndarray) -> None:
+        """Enqueue one finished burst (one packet's samples)."""
+        b = np.asarray(burst, np.complex64)
+        if b.size:
+            self._queue.append(b)
+
+    @property
+    def pending(self) -> int:
+        """Samples queued, the unfinished current packet included."""
+        n = sum(b.size for b in self._queue)
+        if self._current is not None:
+            n += self._current.size - self._pos
+        return n
+
+    def pull(self, n: int) -> np.ndarray:
+        """Exactly ``n`` samples: packet data while available, zeros
+        between packets when starved."""
+        out = np.zeros(n, np.complex64)
+        filled = 0
+        while filled < n:
+            if self._current is None:
+                if not self._queue:
+                    self.zeros_inserted += n - filled
+                    break
+                self._current = self._queue.pop(0)
+                self._pos = 0
+                self._packet_count += 1
+                if self.on_packet is not None:
+                    self.on_packet(self._packet_count)
+            take = min(n - filled, self._current.size - self._pos)
+            out[filled : filled + take] = self._current[self._pos : self._pos + take]
+            self._pos += take
+            filled += take
+            if self._pos == self._current.size:
+                self._current = None
+        return out
+
+
+class StreamingTransmitter:
+    """Host driver around a :class:`Transmitter` that carries the GLFSR
+    packet index and the stream-mode FIR history across calls.
+
+    ``burst``, ``stream`` and ``flush`` return the samples as a complex64
+    tensor on the transmitter's device (the transceiver's route: nothing
+    crosses to the host); ``send_burst``, ``send_stream`` and
+    ``flush_stream`` return the same samples as numpy, as the JAX driver
+    does. Sample counts come from the payload lengths on the host, so no
+    call waits on the device for them."""
+
+    def __init__(self, tx: Transmitter):
+        self.tx = tx
+        self._packet_index = 0
+        self._fir_carry: torch.Tensor | None = None
+
+    def _batch(self, payloads, types) -> PacketBatch:
+        return PacketBatch.from_list(
+            payloads, self.tx.config.max_payload_len, self.tx.taps.device, types=types
+        )
+
+    def burst(self, payloads, types=None) -> torch.Tensor:
+        """Modulate payloads as back-to-back bursts."""
+        samples, lens = self.tx.modulate_bursts(
+            self._batch(payloads, types), packet_index0=self._packet_index
+        )
+        self._packet_index += len(payloads)
+        n = self.tx.config.samples_per_symbol * sum(C.burst_symbols(len(p)) for p in payloads)
+        return ragged_concat(samples, lens, n)[0]
+
+    def stream(self, payloads, types=None) -> torch.Tensor:
+        """Modulate payloads in stream mode (continuous FIR state)."""
+        out_syms = sum(C.stream_symbols(len(p)) for p in payloads)
+        self._fir_carry, samples, _ = self.tx.modulate_stream(
+            self._batch(payloads, types), out_syms, self._fir_carry
+        )
+        return samples
+
+    def flush(self) -> torch.Tensor:
+        """Flush the stream-mode FIR history with zero symbols and return
+        the tail samples; resets the carry for a fresh stream. A finite
+        stream needs it: the carry holds the last ``arm_len - 1`` symbols'
+        contribution, without which the final packet's last samples never
+        leave the filter (the reference's burst chain appends zero flush
+        symbols for the same reason, packet_transmitter_pdu.hpp:251-259)."""
+        dev = self.tx.taps.device
+        if self._fir_carry is None:
+            return torch.zeros(0, dtype=torch.complex64, device=dev)
+        zeros = torch.zeros(self.tx.arm_len - 1, dtype=torch.complex64, device=dev)
+        _, samples = stream_interpolating_fir(
+            self._fir_carry, zeros, self.tx.taps, self.tx.config.samples_per_symbol
+        )
+        self._fir_carry = None
+        return samples
+
+    def send_burst(self, payloads, types=None) -> np.ndarray:
+        return self.burst(payloads, types).cpu().numpy()
+
+    def send_stream(self, payloads, types=None) -> np.ndarray:
+        return self.stream(payloads, types).cpu().numpy()
+
+    def flush_stream(self) -> np.ndarray:
+        return self.flush().cpu().numpy()

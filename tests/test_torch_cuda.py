@@ -152,3 +152,42 @@ def test_fetch_rows_bit_exact(dev, d):
         starts = 2 * torch.randint(0, (t - r) // 2, (d,), generator=g, device=dev) + 1
         starts[0], starts[1] = 0, t - r
         assert torch.equal(fetch_rows(x, starts, r), fetch_rows_plain(x, starts, r))
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_transmitter_card_matches_cpu(dev, stream):
+    """The TX entry at 8 x 1500 B with PyTorch's default TF32 flags: the
+    card's samples within 1e-5 of the same transmitter on CPU tensors,
+    lengths equal."""
+    from gr4_packet_modem_tpu_torch.entry import tx_entry
+
+    fn, (b,) = tx_entry(dev, stream=stream, batch=8)
+    cfn, (cb,) = tx_entry("cpu", stream=stream, batch=8)
+    samples, lens = fn(b)
+    want, want_lens = cfn(cb)
+    assert torch.equal(lens.cpu(), want_lens)
+    torch.testing.assert_close(samples.cpu(), want, rtol=0, atol=1e-5)
+
+
+def test_bank_step_groups_on_card(dev):
+    """Four channels of the bench stimulus in groups of two and as one
+    batch: equal detections, flags and bytes, every packet decoded."""
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver, RxConfig
+    from gr4_packet_modem_tpu_torch.utils.stimulus import burst_samples
+
+    rng = np.random.default_rng(4)
+    payloads = [rng.integers(0, 256, n, dtype=np.uint8) for n in (60, 128, 9)]
+    burst = np.concatenate([burst_samples(p, packet_index=i) for i, p in enumerate(payloads)])
+    rx = Receiver(RxConfig(max_payload_len=128, max_detections=8, freq_bins=1), dev)
+    fp = rx.front_pad
+    x = torch.zeros(4, fp + 16384 + rx.pad_tail(), dtype=torch.complex64, device=dev)
+    for c in range(4):
+        rot = np.exp(0.3j * c) * burst
+        x[c, fp + 50 * c : fp + 50 * c + burst.size] = torch.from_numpy(rot.astype(np.complex64)).to(dev)
+    g2, g0 = rx.bank_step(x, 2), rx.bank_step(x, 0)
+    for name in ("index", "valid", "freq_bin", "overflow"):
+        assert torch.equal(getattr(g2[0], name), getattr(g0[0], name)), name
+    for name in ("accepted", "crc_ok", "lengths", "data"):
+        assert torch.equal(getattr(g2[2], name), getattr(g0[2], name)), name
+    assert torch.equal(g2[3], g0[3])
+    assert int(g2[2].accepted.sum()) == 4 * len(payloads)

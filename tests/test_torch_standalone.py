@@ -4,7 +4,9 @@ the originals bit for bit.
 
 (a) runs in a fresh interpreter in which importing ``gr4_packet_modem_tpu``
 (or JAX) raises; (b) and (c) compare the copies with the JAX package's
-modules and ``tests/reference_impl.py``, which only the tests import.
+modules and ``tests/reference_impl.py``, which only the tests import: the
+numpy modules and the channel's resampler prototype bit for bit, the ZMQ
+publisher by what it sends and when it refuses.
 """
 
 import os
@@ -17,9 +19,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import reference_impl as ref  # noqa: E402
+from gr4_packet_modem_tpu.io import zmq_pub as j_zmq_pub  # noqa: E402
+from gr4_packet_modem_tpu.models import channel as j_channel  # noqa: E402
 from gr4_packet_modem_tpu.utils import constants as j_constants  # noqa: E402
 from gr4_packet_modem_tpu.utils import firdes as j_firdes  # noqa: E402
 from gr4_packet_modem_tpu.utils import lfsr as j_lfsr  # noqa: E402
+from gr4_packet_modem_tpu_torch.io import zmq_pub  # noqa: E402
+from gr4_packet_modem_tpu_torch.models import channel  # noqa: E402
 from gr4_packet_modem_tpu_torch.utils import constants, firdes, lfsr, stimulus  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -121,3 +127,41 @@ def test_stimulus_equals_reference_impl(length, index, seed):
     header = rng.integers(0, 256, 4, dtype=np.uint8)
     assert _bits(stimulus.ldpc_encode_bytes(header)) == _bits(ref.ldpc_encode_bytes(header))
     assert _bits(stimulus.frame_bytes(payload, 1)) == _bits(ref.frame_bytes(payload, 1))
+
+
+@pytest.mark.parametrize("arms,taps_per_arm", [(32, 40), (16, 24)])
+def test_pfb_arb_taps_equal_bit_for_bit(arms, taps_per_arm):
+    """(b) The resampler's prototype (scipy's remez on both sides)."""
+    assert _bits(channel.pfb_arb_taps(arms, taps_per_arm)) == _bits(j_channel.pfb_arb_taps(arms, taps_per_arm))
+
+
+class _Socket:
+    def __init__(self):
+        self.sent = []
+
+    def send(self, data):
+        self.sent.append(data)
+
+
+@pytest.mark.parametrize("have", [True, False])
+def test_zmq_pub_behaves_as_the_original(monkeypatch, have):
+    """(b) ``have_zmq`` agrees; a sink sends each PDU as its contiguous
+    bytes (a strided complex view included); without pyzmq both refuse to
+    build a sink."""
+    assert zmq_pub.have_zmq() == j_zmq_pub.have_zmq()
+    if not have:
+        monkeypatch.setattr(zmq_pub, "_ZMQ", False)
+        monkeypatch.setattr(j_zmq_pub, "_ZMQ", False)
+        for mod in (zmq_pub, j_zmq_pub):
+            with pytest.raises(RuntimeError, match="pyzmq not available"):
+                mod.ZmqPduPubSink("tcp://127.0.0.1:1")
+        return
+    pdus = [np.arange(12, dtype=np.float32).view(np.complex64)[::2], np.arange(5, dtype=np.uint8)]
+    sent = []
+    for mod in (zmq_pub, j_zmq_pub):
+        sink = mod.ZmqPduPubSink.__new__(mod.ZmqPduPubSink)
+        sink._sock = _Socket()
+        for p in pdus:
+            sink.send(p)
+        sent.append(sink._sock.sent)
+    assert sent[0] == sent[1] and all(isinstance(m, bytes) for m in sent[0])
