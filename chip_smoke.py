@@ -57,7 +57,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    noise 0.05, 4 frequency bins a side) must decode 24/24 byte-exact;
    samples/s of the step and its split into TX, channel and RX. Then a
    stream-mode loopback (14 packets of 10..1500 bytes, CFO 0.006) and the
-   SFO operating point (1.2 ppm, CFO 0.005), each decoding every packet.
+   SFO operating point (1.2 ppm, CFO 0.005), each decoding every packet;
+9. per: ``entry.per_curve`` (42 rows of 24 random 200-byte packets, 1008
+   a point) at 20, 13, 12, 11, 10 and 8 dB with the Costas carrier and at
+   11 and 20 dB with V&V, beside the uncoded-QPSK PER; gates: 0 at 20 dB,
+   Costas in [0.21, 0.34] at 11 dB, above 0.9 at 8 dB, non-increasing in
+   Es/N0 within 3 sigma a step, every point within 3 binomial sigma of the
+   theory, the carriers within 0.06 at 11 dB, and the
+   same numpy-made noisy samples (240 packets at 11 dB) decoded alike on
+   CPU tensors and on the card but for at most one packet;
+10. sharded: NCCL at world 1 and a 1 x 1 ``make_mesh``: ``StreamingShardedBank``
+   beside ``StreamingBank`` (int8 wire, the streaming stimulus; the same
+   packets in order, rates and host split side by side), one
+   ``ReceiverBank.step`` of the bench bank in channel groups of 16 (rows
+   equal to ``bank_step(x, 16)``'s), ``entry.sharded_dryrun``; with two
+   cards or more also one process a card on a ``(ch, 2)`` mesh, held to
+   ``StreamingBank``'s packets.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; each path of the receiver must have launched every kernel.
@@ -853,10 +868,24 @@ def stream_run(torch, card: str, driver, x_unit, expected, units: int, label: st
         f"indices; sustained {rate:.4e} samples/s over {blocks} blocks; per block h2d "
         f"{per_block['h2d_s']:.2f} ms, dispatch {per_block['dispatch_s']:.2f} ms, materialize "
         f"{per_block['materialize_s']:.2f} ms  [{card}]")
-    log(f"  {label}: launches {launches}; synchronising calls in the timed feed: "
-        f"{sum('synchroniz' in str(w.message) for w in syncs)} {sync_msgs[:3]}")
+    n_syncs = sum("synchroniz" in str(w.message) for w in syncs)
+    log(f"  {label}: launches {launches}; synchronising calls in the timed feed: {n_syncs} {sync_msgs[:3]}")
     return {"rate_sps": rate, "blocks": blocks, "per_block_ms": per_block, "launches": launches,
-            "packets": len(pkts)}
+            "packets": len(pkts), "syncs": n_syncs}, pkts
+
+
+def stream_stimulus(block: int, channels: int, units: int):
+    """bench.py's streaming feed: whole 12-burst tiles (bench.py:184-186),
+    channel c rotated by exp(1j*0.1*c). Returns (one unit [C, n], the
+    (index, payload) of every packet of 1 + ``units`` units)."""
+    stream, payloads, offsets = bench_stream()
+    reps = -(-block // stream.size)
+    unit = np.tile(stream, reps)
+    starts = (offsets[None, :] + (np.arange(reps) * stream.size)[:, None]).ravel()
+    expected = [(u * unit.size + s, payloads[i % 12])
+                for u in range(1 + units) for i, s in enumerate(starts)]
+    x_unit = (unit[None, :] * np.exp(1j * 0.1 * np.arange(channels))[:, None]).astype(np.complex64)
+    return x_unit, expected
 
 
 def streaming_phase(torch, card: str) -> dict:
@@ -865,13 +894,7 @@ def streaming_phase(torch, card: str) -> dict:
 
     dev = torch.device("cuda")
     block, channels, units = BENCH_BLOCK, BENCH_CHANNELS, 3
-    stream, payloads, offsets = bench_stream()
-    reps = -(-block // stream.size)
-    unit = np.tile(stream, reps)  # whole bursts only (bench.py:184-186)
-    starts = (offsets[None, :] + (np.arange(reps) * stream.size)[:, None]).ravel()
-    expected = [(u * unit.size + s, payloads[i % 12])
-                for u in range(1 + units) for i, s in enumerate(starts)]
-    x_unit = (unit[None, :] * np.exp(1j * 0.1 * np.arange(channels))[:, None]).astype(np.complex64)
+    x_unit, expected = stream_stimulus(block, channels, units)
     h2d, d2h = pinned_bandwidth(torch)
     log(f"  pinned copies: h2d {h2d / 1e9:.3f} GB/s, d2h {d2h / 1e9:.3f} GB/s  [{card}]")
     out = {"h2d_Bps": h2d, "d2h_Bps": d2h}
@@ -879,14 +902,14 @@ def streaming_phase(torch, card: str) -> dict:
     for name, wire, nbytes in (("bank_f32", None, 8), ("bank_int8", torch.int8, 2)):
         bank = StreamingBank(BENCH_CONFIG, dev, channels=channels, block=block, group=16,
                              transfer_dtype=wire, result_budget=budget * channels)
-        r = stream_run(torch, card, bank, x_unit, expected, units, f"StreamingBank {name[5:]}")
+        r, _ = stream_run(torch, card, bank, x_unit, expected, units, f"StreamingBank {name[5:]}")
         r["h2d_share"] = r["rate_sps"] * nbytes / h2d
         log(f"  StreamingBank {name[5:]}: wire {nbytes} B/sample = {r['rate_sps'] * nbytes / 1e9:.3f} GB/s, "
             f"{100 * r['h2d_share']:.1f} % of the pinned h2d bandwidth  [{card}]")
         out[name] = r
         del bank
     srx = StreamingReceiver(BENCH_CONFIG, dev, block=block, result_budget=budget)
-    r = stream_run(torch, card, srx, unit.astype(np.complex64), expected, units, "StreamingReceiver f32")
+    r, _ = stream_run(torch, card, srx, x_unit[0], expected, units, "StreamingReceiver f32")
     r["h2d_share"] = r["rate_sps"] * 8 / h2d
     out["receiver_f32"] = r
     return out
@@ -1052,6 +1075,238 @@ def transceiver_phase(torch, card: str, dev) -> dict:
     return out
 
 
+# -------------------------------------------------------------- PER, sharded
+
+PER_POINTS = (20.0, 13.0, 12.0, 11.0, 10.0, 8.0)
+
+
+def qpsk_per_theory(esn0_db: float, bits: int = 8 * (200 + 4)) -> float:
+    """Uncoded QPSK PER of a 204-byte packet: 1 - (1 - Q(sqrt(Es/N0)))^1632."""
+    from math import erfc, sqrt
+
+    ber = 0.5 * erfc(sqrt(10 ** (esn0_db / 10)) / sqrt(2))
+    return 1.0 - (1.0 - ber) ** bits
+
+
+def per_phase(torch, card: str, dev) -> dict:
+    """``per_curve`` on the card (1008 packets a point, Costas at six
+    points and V&V at two) against the uncoded-QPSK theory, with its gates;
+    then the same numpy-made noisy samples (240 packets at 11 dB) through
+    the receiver on CPU tensors and on the card."""
+    from gr4_packet_modem_tpu_torch.entry import per_config, per_curve, per_decode, per_sets, per_signal
+    from gr4_packet_modem_tpu_torch.models.channel import esn0_db_to_noise_sigma
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver
+    from gr4_packet_modem_tpu_torch.ops import _build
+
+    curves = {}
+    for carrier, points in (("costas", PER_POINTS), ("vv", (11.0, 20.0))):
+        t0 = time.perf_counter()
+        curves[carrier], launches = path_launches(
+            torch, f"per {carrier}", lambda: per_curve(dev, points, carrier=carrier), _build.KERNELS)
+        log(f"  per {carrier}: {len(points)} points in {time.perf_counter() - t0:.2f} s  [{card}]")
+        for p in curves[carrier]:
+            log(f"  per {carrier} Es/N0 {p['esn0_db']:5.1f} dB: PER {p['per']:.4f} ({p['good']}/{p['packets']} "
+                f"good, crc_ok {p['crc_ok']}), uncoded QPSK theory {qpsk_per_theory(p['esn0_db']):.4f}  [{card}]")
+    by = {c: {p["esn0_db"]: p for p in pts} for c, pts in curves.items()}
+    n = by["costas"][20.0]["packets"]
+    check(n == 1008, f"per: {n} packets a point, not 1008")
+    check(by["costas"][20.0]["per"] == 0.0 and by["vv"][20.0]["per"] == 0.0, "per: packets lost at 20 dB")
+    mid = by["costas"][11.0]["per"]
+    check(0.21 <= mid <= 0.34, f"per: Costas PER {mid:.4f} at 11 dB outside [0.21, 0.34]")
+    check(by["costas"][8.0]["per"] > 0.9, f"per: PER {by['costas'][8.0]['per']:.4f} at 8 dB, not above 0.9")
+    pers = [by["costas"][e]["per"] for e in PER_POINTS]  # Es/N0 falling
+    for e, a, b in zip(PER_POINTS[1:], pers, pers[1:]):
+        sigma = np.sqrt((a * (1 - a) + b * (1 - b)) / n)
+        check(b >= a - 3 * sigma, f"per: PER falls from {a:.4f} to {b:.4f} as Es/N0 falls to {e} dB")
+    diff = abs(mid - by["vv"][11.0]["per"])
+    check(diff < 0.06, f"per: |Costas - V&V| = {diff:.4f} at 11 dB")
+    for carrier, pts in by.items():  # every point within 3 sigma of theory
+        for e, p in pts.items():
+            q = qpsk_per_theory(e)
+            sigma = np.sqrt(q * (1 - q) / n)
+            check(sigma == 0 or abs(p["per"] - q) <= 3 * sigma,
+                  f"per {carrier}: PER {p['per']:.4f} at {e} dB, theory {q:.4f} +- 3 x {sigma:.4f}")
+
+    # the same samples on CPU tensors and on the card, fused acquisition
+    # on both, so the kernels meet their plain versions
+    cfg = dataclasses.replace(per_config("costas"), acquisition_backend="fused")
+    x, payloads, power = per_signal("cpu", channels=10, seed=3)
+    rng = np.random.default_rng(11)
+    sigma = esn0_db_to_noise_sigma(11.0, power)
+    x = x.numpy()
+    noisy = (x + sigma * (rng.standard_normal(x.shape) + 1j * rng.standard_normal(x.shape))).astype(np.complex64)
+    rows = {}
+    for where in ("cpu", dev):
+        res = per_decode(Receiver(cfg, where), torch.from_numpy(noisy).to(where))
+        rows[str(where)] = per_sets(res, payloads)[1]
+    a, b = rows["cpu"], rows[str(dev)]
+    differ = sum(len(set(ra) ^ set(rb)) for ra, rb in zip(a, b))
+    check(differ <= 1, f"per: CPU and card decode {differ} packets differently at 11 dB")
+    log(f"  per same samples, 240 packets at 11 dB: CPU {sum(map(len, a))}, card {sum(map(len, b))} decoded, "
+        f"{differ} differing  [{card}]")
+    return {"costas": curves["costas"], "vv": curves["vv"], "launches": launches,
+            "same_samples": {"cpu": sum(map(len, a)), "card": sum(map(len, b)), "differing": differ}}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def keys(pkts) -> list[tuple]:
+    return [(p.channel, p.index, p.data.tobytes(), p.arm) for p in pkts]
+
+
+def multi_rank(rank: int, world: int, port: int, device_type: str, block: int, channels: int,
+               units: int, out: str) -> None:
+    """One rank of the multi-card run: a ``(ch, 2)`` mesh, and
+    ``StreamingShardedBank`` (int8 wire) on the streaming stimulus; rank 0
+    writes the packets' keys and every rank its launch counts to ``out``."""
+    sys.path.insert(0, ROOT)
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from gr4_packet_modem_tpu_torch.entry import BENCH_CONFIG
+    from gr4_packet_modem_tpu_torch.ops import _build
+    from gr4_packet_modem_tpu_torch.parallel.bank import make_mesh
+    from gr4_packet_modem_tpu_torch.parallel.serving import StreamingShardedBank
+
+    if device_type == "cuda":
+        torch.cuda.set_device(rank)
+    dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
+    mesh = make_mesh(world, time_shards=2, device_type=device_type)
+    c_shards = world // 2
+    bank = StreamingShardedBank(mesh, BENCH_CONFIG, channels=channels, block=block, group=16,
+                                transfer_dtype=torch.int8,
+                                result_budget=BENCH_CONFIG.max_detections * channels // c_shards)
+    x_unit, _ = stream_stimulus(block, channels, units)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    pkts = []
+    for _ in range(1 + units):
+        pkts += bank.process(x_unit)
+    pkts += bank.flush()
+    dt = time.perf_counter() - t0
+    with open(f"{out}.{rank}", "wb") as f:
+        pickle.dump({"keys": keys(pkts) if rank == 0 else None, "launches": _build.launch_counts(),
+                     "overflow": (bank.overflow_blocks, bank.budget_overflow_blocks),
+                     "seconds": dt, "blocks": bank.stats["blocks"]}, f)
+    dist.destroy_process_group()
+
+
+def sharded_phase(torch, card: str, dev) -> dict:
+    """On a 1 x 1 NCCL mesh: ``StreamingShardedBank`` beside
+    ``StreamingBank`` (int8 wire, the streaming phase's stimulus), one
+    ``ReceiverBank.step`` of the bench bank against ``bank_step(x, 16)``,
+    and ``sharded_dryrun``; with two cards or more, also a ``(ch, 2)`` mesh
+    of one process a card."""
+    import pickle
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from gr4_packet_modem_tpu_torch.entry import BENCH_BLOCK, BENCH_CHANNELS, BENCH_CONFIG, sharded_dryrun
+    from gr4_packet_modem_tpu_torch.ops import _build
+    from gr4_packet_modem_tpu_torch.parallel.bank import BankConfig, ReceiverBank, make_mesh
+    from gr4_packet_modem_tpu_torch.parallel.serving import StreamingShardedBank
+    from gr4_packet_modem_tpu_torch.runtime.streaming import StreamingBank
+
+    out = {}
+    block, channels, units = BENCH_BLOCK, BENCH_CHANNELS, 3
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    mesh = make_mesh(1)
+    log(f"  NCCL world 1, mesh {tuple(mesh.mesh.shape)} (ch, time)")
+
+    # 1. the sharded driver beside StreamingBank, same stimulus, same
+    # process, in turns: StreamingBank, sharded, sharded, StreamingBank
+    x_unit, expected = stream_stimulus(block, channels, units)
+    kw = dict(channels=channels, block=block, group=16, transfer_dtype=torch.int8,
+              result_budget=BENCH_CONFIG.max_detections * channels)
+    runs = []
+    bank, sharded_bank = "StreamingBank int8", "StreamingShardedBank int8 1x1"
+    for name in (bank, sharded_bank, sharded_bank, bank):
+        sharded = name == sharded_bank
+        driver = (StreamingShardedBank(mesh, BENCH_CONFIG, dev, **kw) if sharded
+                  else StreamingBank(BENCH_CONFIG, dev, **kw))
+        r, pkts = stream_run(torch, card, driver, x_unit, expected, units, name)
+        del driver
+        if sharded:
+            for k in _build.KERNELS:
+                check(r["launches"][k] > 0, f"kernel {k} was not launched by StreamingShardedBank")
+            check(keys(pkts) == keys(ref_pkts), "StreamingShardedBank 1x1: packets differ from StreamingBank's")
+        else:
+            ref_pkts = pkts
+        runs.append(dict(r, driver=name))
+    rates = [f"{r['rate_sps']:.4e}" for r in runs]
+    log(f"  StreamingShardedBank 1x1: the {len(ref_pkts)} packets of StreamingBank int8, in order; sustained "
+        f"samples/s in turns (StreamingBank, sharded, sharded, StreamingBank): {', '.join(rates)}  [{card}]")
+    out["streaming"] = runs
+
+    # 2. one ReceiverBank step of the bench bank against bank_step(x, 16)
+    rbank = ReceiverBank(mesh, BankConfig(rx=BENCH_CONFIG, channel_group=16))
+    samples, want, _ = bench_signal(block, channels)
+    x_loc = torch.from_numpy(samples).to(dev)
+    res, launches = path_launches(torch, "ReceiverBank.step", lambda: rbank.step(x_loc), _build.KERNELS)
+    rx = rbank.rx
+    x = rx.pad(x_loc)
+    ref_res = rx.bank_step(x, 16)[2]
+    acc = ref_res.accepted.view(channels, -1)
+    check(torch.equal(res.accepted, acc), "ReceiverBank: accepted rows differ from bank_step(x, 16)'s")
+    check(torch.equal(res.lengths[acc], ref_res.lengths.view(channels, -1)[acc]), "ReceiverBank: lengths differ")
+    check(torch.equal(res.data[acc], ref_res.data.view(channels, acc.shape[1], -1)[acc]), "ReceiverBank: bytes differ")
+    check(int(acc.sum()) == channels * len(want), f"ReceiverBank: {int(acc.sum())} of {channels * len(want)} packets")
+    # in turns, so that neither reads only the host's slow or fast moments
+    fns = (lambda: rbank.step(x_loc).accepted.sum().item(),
+           lambda: rx.bank_step(x, 16)[2].accepted.sum().item())
+    times = ([], [])
+    for r in range(6):
+        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+            times[i].append(median_ms(torch, fns[i], reps=1))
+    step_ms, ref_ms = map(statistics.median, times)
+    log(f"  ReceiverBank.step: {int(acc.sum())} packets, rows equal to bank_step(x, 16); {step_ms:.2f} ms "
+        f"against {ref_ms:.2f} ms (medians of 6 in turns)  [{card}]")
+    out["receiver_bank"] = {"launches": launches, "step_ms": step_ms, "bank_step_g16_ms": ref_ms,
+                            "packets": int(acc.sum())}
+    del rbank, rx, x, x_loc, res, ref_res
+
+    # 3. the dry run
+    dry, launches = path_launches(torch, "sharded_dryrun", lambda: sharded_dryrun(mesh, dev), _build.KERNELS)
+    log(f"  sharded_dryrun: {dry}")
+    out["dryrun"] = dict(dry, launches=launches)
+    dist.destroy_process_group()
+
+    # 4. one process a card, on a (ch, 2) mesh
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        world = 4 if cards >= 4 else 2
+        path = os.path.join(OUT_DIR, "multi_rank")
+        os.makedirs(OUT_DIR, exist_ok=True)
+        mp.spawn(multi_rank, args=(world, free_port(), "cuda", block, channels, units, path), nprocs=world)
+        ranks = []
+        for r in range(world):
+            with open(f"{path}.{r}", "rb") as f:
+                ranks.append(pickle.load(f))
+        check(sorted(ranks[0]["keys"]) == sorted(keys(ref_pkts)),
+              f"{world} ranks: packets differ from StreamingBank's")
+        for r in ranks:
+            check(r["overflow"] == (0, 0), f"{world} ranks: saturated blocks {r['overflow']}")
+            check(all(r["launches"][k] > 0 for k in _build.KERNELS), f"{world} ranks: a kernel was not launched")
+        log(f"  {world} cards, mesh ({world // 2}, 2): {len(ranks[0]['keys'])} packets, those of StreamingBank; "
+            f"{ranks[0]['blocks']} blocks in {ranks[0]['seconds']:.2f} s  [{card}]")
+        out["multi_card"] = {"world": world, "seconds": ranks[0]["seconds"]}
+    else:
+        log(f"  multi-card: {cards} card here; the multi-rank path ran only on the CPU (gloo: "
+            "tests/test_torch_parallel.py, _serving.py, _multihost.py)")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "gr4_packet_modem_tpu_torch")):
         raise SystemExit("chip_smoke: gr4_packet_modem_tpu_torch/ is missing: run it from a checkout of the repo")
@@ -1107,6 +1362,12 @@ def main() -> int:
     txres = tx_phase(torch, card, dev, tf32_defaults)
     log("transceiver:")
     trxres = transceiver_phase(torch, card, dev)
+
+    # phases 9-10: the PER curve, the sharded receiver and serving driver
+    log("per:")
+    perres = per_phase(torch, card, dev)
+    log("sharded:")
+    shres = sharded_phase(torch, card, dev)
     import gr4_packet_modem_tpu_torch.io.zmq_pub  # noqa: F401  (the taps' publisher, no pyzmq here)
 
     check("jax" not in sys.modules, "jax was imported")
@@ -1126,6 +1387,7 @@ def main() -> int:
         json.dump({"card": card, "kernels": kernels, "kernel_rows": kres["rows"],
                    "launch_floor_ms": kres["launch_floor_ms"], "slice": sres,
                    "streaming": stres, "taps": tapres, "tx": txres, "transceiver": trxres,
+                   "per": perres, "sharded": shres,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -10,7 +10,10 @@ V&V payload carrier, fused acquisition: bench.py's default backend);
 benchmarks/benchmark_packet_transmitter_pdu.py (64 x 1500-byte packets,
 burst or stream mode); :func:`transceiver_entry` the TX -> channel -> RX
 step of benchmarks/benchmark_packet_transceiver.py (24 x 1500-byte bursts,
-CFO 0.005 rad/sample, noise 0.05 a component).
+CFO 0.005 rad/sample, noise 0.05 a component); :func:`per_curve` the packet
+error rate against Es/N0 (examples/per_sweep.py); :func:`sharded_dryrun`
+the multi-card dry run of ``__graft_entry__.dryrun_multichip`` on a
+``(ch, time)`` mesh.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.channel import awgn, rotate
+from .models.channel import awgn, esn0_db_to_noise_sigma, rotate
 from .models.receiver import PayloadResult, Receiver, RxConfig
 from .models.transmitter import Transmitter, TxConfig
 from .utils import constants as C
@@ -27,6 +30,7 @@ from .utils.ragged import PacketBatch, ragged_concat
 __all__ = [
     "entry", "bank_entry", "tx_entry", "transceiver_entry", "Transceiver",
     "BENCH_CONFIG", "BENCH_CHANNELS", "BENCH_BLOCK", "TX_PAYLOAD_LEN",
+    "per_curve", "per_config", "per_signal", "per_decode", "per_sets", "sharded_dryrun",
 ]
 
 # bench.py's geometry: max_detections is its formula for 12 x 1500-byte
@@ -148,3 +152,151 @@ def transceiver_entry(device: str | torch.device, bins: int = 4, batch: int = 24
     fn = Transceiver(dev, bins, batch)
     packets = PacketBatch.from_list(_payloads(batch), 1536, dev)
     return fn, (packets, torch.Generator(device=dev).manual_seed(0))
+
+
+# the PER sweep of tests/test_per_snr.py and examples/per_sweep.py
+PER_PACKETS = 24  # packets a row
+PER_PAYLOAD_LEN = 200
+PER_CFO = 0.005  # rad/sample
+
+
+def per_config(carrier: str = "costas") -> RxConfig:
+    return RxConfig(max_payload_len=256, max_detections=48, payload_carrier=carrier)
+
+
+def per_signal(device: str | torch.device, channels: int = 42, seed: int = 0):
+    """The PER sweep's clean bank: on each of ``channels`` rows, 24 random
+    200-byte packets (``np.random.default_rng(seed)``, row after row) as
+    back-to-back bursts from the port's transmitter, rotated by 0.005
+    rad/sample. Returns ``(x [channels, n] complex64 on the device,
+    payloads per row, signal power)``; the power is tests/test_per_snr.py:
+    49-52's (mean sample power over the bursts' own samples)."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed)
+    payloads = [
+        [rng.integers(0, 256, PER_PAYLOAD_LEN, dtype=np.uint8) for _ in range(PER_PACKETS)]
+        for _ in range(channels)
+    ]
+    tx = Transmitter(TxConfig(max_payload_len=256), dev)
+    rows = []
+    for row in payloads:  # each row's packet indices count from 0, as one JAX call's
+        s, lens = tx.modulate_bursts(PacketBatch.from_list(row, 256, dev))
+        rows.append(ragged_concat(s, lens, PER_PACKETS * 4 * C.burst_symbols(PER_PAYLOAD_LEN))[0])
+    stream = torch.stack(rows)
+    power = float(stream.abs().square().mean())
+    return rotate(stream, PER_CFO), payloads, power
+
+
+def per_decode(rx: Receiver, x: torch.Tensor) -> PayloadResult:
+    """One ``rx.bank_step(·, group=0)`` of the unpadded bank ``x``
+    ``[C, n]``: the payload rows ``[C*D]``."""
+    return rx.bank_step(rx.pad(x), group=0)[2]
+
+
+def per_sets(res: PayloadResult, payloads):
+    """Per channel of a bank step's ``res``: the set of good packets (as
+    bytes; a packet is good when an accepted row of its channel has its
+    exact length and bytes, tests/test_per_snr.py:60-65) and the list of
+    every accepted row's bytes."""
+    c = len(payloads)
+    acc = res.accepted.view(c, -1).cpu().numpy()
+    lens = res.lengths.view(c, -1).cpu().numpy()
+    data = res.data.view(c, acc.shape[1], -1).cpu().numpy()
+    good, rows = [], []
+    for ch, want in enumerate(payloads):
+        got = [data[ch, i, : lens[ch, i]].tobytes() for i in np.nonzero(acc[ch])[0]]
+        good.append({p.tobytes() for p in want} & set(got))
+        rows.append(got)
+    return good, rows
+
+
+def per_curve(
+    device: str | torch.device,
+    esn0_db,
+    carrier: str = "costas",
+    channels: int = 42,
+    seed: int = 0,
+) -> list[dict]:
+    """Packet error rate against Es/N0 (examples/per_sweep.py, at
+    tests/test_per_snr.py's sizes): :func:`per_signal`'s bank, then at each
+    point of ``esn0_db`` (a number or a sequence) noise at
+    ``esn0_db_to_noise_sigma`` from a ``torch.Generator`` seeded
+    ``seed + 100`` (the same draw at every point) and :func:`per_decode`
+    with ``per_config(carrier)``. Returns one dict a point: ``esn0_db``,
+    ``per``, ``good``, ``packets`` and ``crc_ok``."""
+    dev = torch.device(device)
+    x, payloads, power = per_signal(dev, channels, seed)
+    rx = Receiver(per_config(carrier), dev)
+    out = []
+    for e in np.atleast_1d(np.asarray(esn0_db, np.float64)):
+        gen = torch.Generator(device=dev).manual_seed(seed + 100)
+        res = per_decode(rx, awgn(x, esn0_db_to_noise_sigma(float(e), power), gen))
+        good = sum(map(len, per_sets(res, payloads)[0]))
+        n = channels * PER_PACKETS
+        out.append({"esn0_db": float(e), "per": 1.0 - good / n, "good": good, "packets": n,
+                    "crc_ok": int(res.crc_ok.sum())})
+    return out
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def sharded_dryrun(mesh, device: str | torch.device) -> dict:
+    """The multi-card dry run (``__graft_entry__.dryrun_multichip``), called
+    on every rank of a ``(ch, time)`` mesh over the world:
+
+    - ``StreamingShardedBank`` at production shapes (``freq_bins=4``,
+      packets of 1536 and 700 bytes on each of ``ch_shards`` channels,
+      block 2**15 so the bursts straddle the time shards, the int8 wire,
+      budget 3 a cell): every packet decoded once, byte-exact, in order;
+    - one ``ReceiverBank`` step with a 32-byte packet on each channel at
+      the start of the bank: the mesh accepts one row a channel, with its
+      bytes.
+
+    Raises on a failed gate; returns the packet counts."""
+    import torch.distributed as dist
+
+    from .parallel.bank import BankConfig, ReceiverBank
+    from .parallel.serving import StreamingShardedBank
+
+    dev = torch.device(device)
+    ch_shards, t_shards = (int(n) for n in mesh.mesh.shape)
+    block = 1 << 15
+    tx = Transmitter(TxConfig(max_payload_len=1536), dev)
+    rng = np.random.default_rng(7)
+    payloads = [[rng.integers(0, 256, n, dtype=np.uint8) for n in (1536, 700)] for _ in range(ch_shards)]
+    x = np.zeros((ch_shards, 2 * block), np.complex64)
+    for c, pays in enumerate(payloads):
+        s, lens = tx.modulate_bursts(PacketBatch.from_list(pays, 1536, dev))
+        stream = ragged_concat(s, lens, 4 * sum(C.burst_symbols(p.size) for p in pays))[0]
+        off = 100 + 517 * c
+        x[c, off : off + stream.shape[0]] = stream.cpu().numpy() * np.exp(1j * 0.2 * c)
+    bank = StreamingShardedBank(
+        mesh, RxConfig(max_payload_len=1536, max_detections=4, freq_bins=4), dev,
+        channels=ch_shards, block=block, transfer_dtype=torch.int8, result_budget=3,
+    )
+    pkts = bank.process(x) + bank.flush()
+    _check(bank.overflow_blocks == 0 and bank.budget_overflow_blocks == 0,
+           f"sharded serving: {bank.overflow_blocks} overflow, {bank.budget_overflow_blocks} budget-overflow blocks")
+    for c, pays in enumerate(payloads):
+        got = [p.data for p in sorted(pkts, key=lambda p: p.index) if p.channel == c]
+        _check(len(got) == len(pays) and all(np.array_equal(g, p) for g, p in zip(got, pays)),
+               f"sharded serving channel {c}: {len(got)} of {len(pays)} packets, or bytes differ")
+
+    rbank = ReceiverBank(mesh, BankConfig(rx=RxConfig(max_payload_len=64, max_detections=4, freq_bins=1)), dev)
+    payload = np.arange(32, dtype=np.uint8)
+    s, lens = Transmitter(TxConfig(max_payload_len=64), dev).modulate_bursts(
+        PacketBatch.from_list([payload], 64, dev))
+    stream = ragged_concat(s, lens, 4096 * t_shards)[0]
+    res = rbank.step(rbank.local_slice(stream[None].expand(ch_shards, -1)).contiguous())
+    acc = res.accepted.sum(dim=1)  # [C_loc]
+    total = acc.clone()
+    dist.all_reduce(total, group=rbank.time_group)
+    _check(bool((total == 1).all()), f"ReceiverBank: accepted {total.tolist()} a channel, not 1")
+    for c in torch.nonzero(acc).flatten().tolist():
+        i = int(torch.nonzero(res.accepted[c])[0])
+        _check(int(res.lengths[c, i]) == 32 and np.array_equal(res.data[c, i, :32].cpu().numpy(), payload),
+               f"ReceiverBank channel {c}: the packet differs")
+    return {"packets": len(pkts), "bank_accepted": int(total.sum())}

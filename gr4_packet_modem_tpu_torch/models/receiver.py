@@ -538,10 +538,11 @@ class Receiver(nn.Module):
     # -------------------------------------------------------------- high level
 
     def pad(self, samples: np.ndarray | torch.Tensor) -> torch.Tensor:
-        """``front_pad`` zeros + samples + ``pad_tail()`` zeros, as a
-        complex64 tensor on the receiver's device. ``samples`` is a numpy
-        array, or a tensor on that device (padded there, with no trip
-        through the host)."""
+        """``front_pad`` zeros + samples + ``pad_tail()`` zeros along the
+        last axis (a capture ``[N]`` or a bank ``[C, N]``), as a complex64
+        tensor on the receiver's device. ``samples`` is a numpy array, or a
+        tensor on that device (padded there, with no trip through the
+        host)."""
         dev = self.arm_taps.device
         if isinstance(samples, torch.Tensor):
             if samples.device != dev:
@@ -549,9 +550,10 @@ class Receiver(nn.Module):
             body = samples.to(torch.complex64)
         else:
             body = torch.from_numpy(np.asarray(samples, np.complex64)).to(dev)
+        lead = body.shape[:-1]
         return torch.cat([
-            body.new_zeros(self.front_pad), body, body.new_zeros(self.pad_tail()),
-        ])
+            body.new_zeros(*lead, self.front_pad), body, body.new_zeros(*lead, self.pad_tail()),
+        ], dim=-1)
 
     def receive(self, samples: np.ndarray | torch.Tensor) -> PayloadResult:
         """One-shot receive over a full capture (numpy, or a complex tensor

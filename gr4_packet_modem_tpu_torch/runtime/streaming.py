@@ -33,7 +33,12 @@ On the transmit side, ``StreamingTransmitter`` carries the GLFSR packet
 index and the stream-mode FIR history across calls, and ``PacketToStream``
 turns bursts into a constant-rate stream on the host.
 
-Not ported yet: ``StreamingShardedBank`` (multi-GPU).
+``StreamingShardedBank`` (``parallel/serving.py``) runs the bank over a
+``(ch, time)`` device mesh through the hooks of :class:`StreamingBank`:
+the shape it stages and decodes (``local_channels``, ``local_block``),
+staging a piece of a block (``_stage_piece``), the whole block's wire
+planes (``_block_planes``), one group's decode (``_decode_group``), the
+result wire of every mesh cell (``_gather_wire``, ``_cells``).
 """
 
 from __future__ import annotations
@@ -232,7 +237,8 @@ class StreamingBank:
         self.rx = Receiver(config, self.device)
         self.channels = int(channels)
         self.block = int(block)
-        self.group = group if 0 < group < channels and channels % group == 0 else 0
+        c = self.local_channels
+        self.group = group if 0 < group < c and c % group == 0 else 0
         fp, pt = self.rx.front_pad, self.rx.pad_tail()
         self.fp, self.pt = fp, pt
         self.buf_len = fp + block + pt
@@ -241,7 +247,7 @@ class StreamingBank:
                 "block too large: buffer-local indices must stay below 2^24 "
                 "for the float32 result wire"
             )
-        c, dev = self.channels, self.device
+        c, dev = self.local_channels, self.device
         self._bufs = [torch.zeros(c, self.buf_len, dtype=torch.complex64, device=dev) for _ in range(2)]
         self._cur = 0
         # absolute stream index of buffer position 0; the first real sample
@@ -249,7 +255,7 @@ class StreamingBank:
         self._abs_offset = -(fp + pt + block)
         self._busy = torch.full((c,), _IDLE_BUSY, dtype=torch.int64, device=dev)
         self._fill = 0  # samples of the next block already staged
-        self._carry = np.zeros((c, 0), np.complex64)  # int4: an unpaired sample
+        self._carry = np.zeros((self.channels, 0), np.complex64)  # int4: an unpaired sample
         self.overflow_blocks = 0  # blocks whose acquisition saturated
         self.budget_overflow_blocks = 0  # blocks whose result wire saturated
         self.stats = {"h2d_s": 0.0, "dispatch_s": 0.0, "materialize_s": 0.0, "blocks": 0}
@@ -260,16 +266,48 @@ class StreamingBank:
         cuda = dev.type == "cuda"
         ring = self.pipeline_depth + 1
         wd = wire_dtype(transfer_dtype)
-        if wd == torch.uint8 and block % 2:
-            raise ValueError("the int4 wire packs sample pairs: block must be even")
-        width = block // 2 if wd == torch.uint8 else block
+        if wd == torch.uint8 and self.local_block % 2:
+            raise ValueError("the int4 wire packs sample pairs: the staged block must be even")
+        width = self.local_block // 2 if wd == torch.uint8 else self.local_block
         self._stage = [torch.empty(2, c, width, dtype=wd, pin_memory=cuda) for _ in range(ring)]
         self._stage_np = [(s.view(torch.int16) if wd == torch.bfloat16 else s).numpy() for s in self._stage]
         self._stage_done: list[torch.cuda.Event | None] = [None] * ring
-        self._rows = c * config.max_detections
-        nbytes = wire_bytes(self._rows, result_budget, config.max_payload_len)
+        self._rows = c * config.max_detections  # decode rows of one mesh cell
+        nbytes = len(self._cells()) * wire_bytes(self._rows, result_budget, config.max_payload_len)
         self._wire = [torch.empty(nbytes, dtype=torch.uint8, pin_memory=cuda) for _ in range(ring)]
         self._inflight: list[tuple[int, torch.cuda.Event | None, int]] = []
+
+    # ----------------------------------------------------------- the shard
+
+    @property
+    def local_channels(self) -> int:
+        """Channels this driver stages and decodes (a mesh cell's)."""
+        return self.channels
+
+    @property
+    def local_block(self) -> int:
+        """Samples of each block this driver stages (a mesh cell's)."""
+        return self.block
+
+    def _cells(self) -> list[int]:
+        """The first channel of each mesh cell's result wire, in wire
+        order."""
+        return [0]
+
+    def _stage_piece(self, i: int, f: int, piece: np.ndarray) -> None:
+        """Convert ``piece`` ``[C, w]``, the block's samples ``[f, f + w)``,
+        into staging slot ``i``."""
+        w = piece.shape[1]
+        cols = slice(f // 2, (f + w) // 2) if self.transfer_dtype == "int4" else slice(f, f + w)
+        to_transfer_planes(piece, self.transfer_dtype, out=self._stage_np[i][:, :, cols])
+
+    def _block_planes(self, planes: torch.Tensor) -> torch.Tensor:
+        """The whole block's wire planes from the staged ones."""
+        return planes
+
+    def _gather_wire(self, packed: torch.Tensor) -> torch.Tensor:
+        """Every mesh cell's packed results, in :meth:`_cells` order."""
+        return packed
 
     # ------------------------------------------------------------------ step
 
@@ -303,16 +341,17 @@ class StreamingBank:
         decode, carry the suppression state; returns the packed results and,
         when a tap is set, the rows' header symbols ``[rows, 192]`` and
         payload symbol planes ``[rows, S, 2]`` (else None)."""
-        chunk = planes_to_complex(planes, packed_int4=self.transfer_dtype == "int4")
+        chunk = planes_to_complex(self._block_planes(planes), packed_int4=self.transfer_dtype == "int4")
         b = self.block
         src, buf = self._bufs[self._cur], self._bufs[1 - self._cur]
         buf[:, :-b].copy_(src[:, b:])
         buf[:, -b:].copy_(chunk)
         self._cur = 1 - self._cur
-        g = self.group or self.channels
+        c = self.local_channels
+        g = self.group or c
         outs = [
             self._decode_group(buf[i : i + g], self._busy[i : i + g])
-            for i in range(0, self.channels, g)
+            for i in range(0, c, g)
         ]
         merged = [torch.stack(o) if o[0].ndim == 0 else torch.cat(o) for o in zip(*outs)]
         idx, lens, types, esn0, freq, arm, acc, data, ovf, busy_end = merged[:10]
@@ -323,7 +362,7 @@ class StreamingBank:
             idx, lens, types, esn0, freq, arm, chan, acc, data, ovf.any(),
             self.result_budget,
         )
-        return packed, (tuple(merged[10:]) or None)
+        return self._gather_wire(packed), (tuple(merged[10:]) or None)
 
     # ------------------------------------------------------------------ feed
 
@@ -361,10 +400,8 @@ class StreamingBank:
         i = self.stats["blocks"] % len(self._stage)
         if self._fill == 0 and self._stage_done[i] is not None:
             self._stage_done[i].synchronize()  # its last h2d copy is done
-        f, w = self._fill, piece.shape[1]
-        cols = slice(f // 2, (f + w) // 2) if self.transfer_dtype == "int4" else slice(f, f + w)
-        to_transfer_planes(piece, self.transfer_dtype, out=self._stage_np[i][:, :, cols])
-        self._fill += w
+        self._stage_piece(i, self._fill, piece)
+        self._fill += piece.shape[1]
         self.stats["h2d_s"] += time.perf_counter() - t0
         if self._fill < self.block:
             return []
@@ -428,29 +465,36 @@ class StreamingBank:
         i, done, abs_offset, syms = inflight
         if done is not None:
             done.synchronize()
+        max_len = self.rx.config.max_payload_len
         k = wire_slots(self._rows, self.result_budget)
-        slots, det_ovf, budget_ovf = unpack_result_wire(
-            self._wire[i].numpy(), k, self.rx.config.max_payload_len
-        )
-        _flag_overflows(self, det_ovf, budget_ovf)
-        out = []
-        for r in np.nonzero(slots["accepted"])[0]:
-            n = int(slots["length"][r])
-            out.append(
-                DecodedPacket(
-                    data=slots["data"][r, :n].copy(),
-                    index=int(slots["index"][r]) + abs_offset,
-                    packet_type=int(slots["type"][r]),
-                    esn0_db=float(slots["esn0"][r]),
-                    channel=int(slots["channel"][r]),
-                    freq=float(slots["freq"][r]),
-                    arm=int(slots["arm"][r]),
-                )
+        cell_bytes = wire_bytes(self._rows, self.result_budget, max_len)
+        wire = self._wire[i].numpy()
+        out: list[DecodedPacket] = []
+        det_ovf = budget_ovf = False
+        for cell, chan0 in enumerate(self._cells()):
+            slots, d_ovf, b_ovf = unpack_result_wire(
+                wire[cell * cell_bytes : (cell + 1) * cell_bytes], k, max_len
             )
-            if self.log:
-                _log_packet(out[-1])
-        if out and syms is not None:
-            self._send_taps(slots, syms)
+            det_ovf, budget_ovf = det_ovf or bool(d_ovf), budget_ovf or bool(b_ovf)
+            found = len(out)
+            for r in np.nonzero(slots["accepted"])[0]:
+                n = int(slots["length"][r])
+                out.append(
+                    DecodedPacket(
+                        data=slots["data"][r, :n].copy(),
+                        index=int(slots["index"][r]) + abs_offset,
+                        packet_type=int(slots["type"][r]),
+                        esn0_db=float(slots["esn0"][r]),
+                        channel=chan0 + int(slots["channel"][r]),
+                        freq=float(slots["freq"][r]),
+                        arm=int(slots["arm"][r]),
+                    )
+                )
+                if self.log:
+                    _log_packet(out[-1])
+            if len(out) > found and syms is not None:
+                self._send_taps(slots, syms)
+        _flag_overflows(self, det_ovf, budget_ovf)
         self.stats["materialize_s"] += time.perf_counter() - t0
         return out
 

@@ -191,3 +191,42 @@ def test_bank_step_groups_on_card(dev):
         assert torch.equal(getattr(g2[2], name), getattr(g0[2], name)), name
     assert torch.equal(g2[3], g0[3])
     assert int(g2[2].accepted.sum()) == 4 * len(payloads)
+
+
+def test_sharded_bank_world_one_nccl(dev):
+    """``StreamingShardedBank`` on a 1 x 1 NCCL mesh (one process, a
+    ``tcp://`` store on localhost) gives ``StreamingBank``'s packets on the
+    card in the same order, at tests/test_torch_serving.py's configuration."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gr4_packet_modem_tpu_torch.models.receiver import RxConfig
+    from gr4_packet_modem_tpu_torch.parallel.bank import make_mesh
+    from gr4_packet_modem_tpu_torch.parallel.serving import StreamingShardedBank
+    from gr4_packet_modem_tpu_torch.runtime.streaming import StreamingBank
+    from gr4_packet_modem_tpu_torch.utils.stimulus import burst_samples
+
+    rng = np.random.default_rng(12)
+    x = np.zeros((2, 3 * 4096 + 9000), np.complex64)
+    for c in range(2):
+        pays = [rng.integers(0, 256, n, dtype=np.uint8) for n in rng.integers(20, 128, 4)]
+        b = np.concatenate([burst_samples(p, packet_index=i) for i, p in enumerate(pays)])
+        x[c, 150 + 731 * c : 150 + 731 * c + b.size] = b * np.exp(0.3j * c)
+    cfg = RxConfig(max_payload_len=128, max_detections=4, freq_bins=1)
+    ref = StreamingBank(cfg, dev, channels=2, block=4096, group=0, transfer_dtype=torch.int8)
+    want = ref.process(x) + ref.flush()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        bank = StreamingShardedBank(make_mesh(1), cfg, channels=2, block=4096, group=0,
+                                    transfer_dtype=torch.int8)
+        got = bank.process(x) + bank.flush()
+    finally:
+        dist.destroy_process_group()
+    assert len(want) == 8
+    assert [(p.channel, p.index, p.data.tobytes(), p.arm) for p in got] == \
+        [(p.channel, p.index, p.data.tobytes(), p.arm) for p in want]
