@@ -72,7 +72,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``ReceiverBank.step`` of the bench bank in channel groups of 16 (rows
    equal to ``bank_step(x, 16)``'s), ``entry.sharded_dryrun``; with two
    cards or more also one process a card on a ``(ch, 2)`` mesh, held to
-   ``StreamingBank``'s packets.
+   ``StreamingBank``'s packets;
+11. apps: the block registry (every entry resolves; ``HeaderLdpcDecoder``
+   at B=1536 bit for bit against the CPU, one K5 launch; the CRC blocks,
+   the slicer, the soft descrambler, the symbol filter and the V&V
+   estimate against the CPU), then the apps through their ``run()``: the
+   TX app to a file and the file RX app back (100 x 1500 B, burst and
+   stream, byte-exact at their sample indices), the transceiver app's
+   self-test loopback (burst with CFO 0.005 and SFO 1.2 ppm, stream with
+   CFO 0.005, each 3 s unthrottled and 3 s at 3.2 Msps; every packet back
+   byte-exact, all six kernels launched) with its rates and loop split,
+   the loop's TX and channel timed apart, and the throttle app at 3.2 Msps. No TUN device is opened
+   (``TunDevice`` needs CAP_NET_ADMIN; the CPU tests hold the native
+   library).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; each path of the receiver must have launched every kernel.
@@ -217,7 +229,8 @@ def timed(torch, fn, reps: int = 10, flush: bool = True) -> dict:
     over ``reps`` calls, each after a write of ``FLUSH_BYTES`` whose own
     kernel is left out, divided by ``reps``, after a warm-up; with
     ``flush`` False the write is left out too, so each call finds in the
-    L2 what the call before left there); ``loop_ms``,
+    L2 what the call before left there; where every session dropped
+    records, ``pooled_call_ms`` of them); ``loop_ms``,
     CUDA events around ``reps`` back-to-back calls; ``host_ms``, the host's
     time to issue one call in that loop."""
     from torch.profiler import ProfilerActivity, profile
@@ -227,10 +240,13 @@ def timed(torch, fn, reps: int = 10, flush: bool = True) -> dict:
     scratch = _flush[0]
     loop, host = loop_ms(torch, fn, reps)
     cuda = torch.autograd.DeviceType.CUDA
-    # a profiler session now and then misses its first kernel (seen on the
-    # card: a flush), so each opens with a flush of its own; it counts only
-    # if each call's kernels came in whole (their number a multiple of reps)
-    for _ in range(3):
+    # a profiler session now and then drops kernel records (seen on the
+    # card: a first flush; once a flush in four and a call's kernel in ten,
+    # three sessions running), so each opens with a flush of its own and
+    # counts only if each call's kernels came in whole (their number a
+    # multiple of reps)
+    sessions = []
+    for _ in range(4):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             scratch.bitwise_not_()
             torch.cuda.synchronize()
@@ -245,11 +261,32 @@ def timed(torch, fn, reps: int = 10, flush: bool = True) -> dict:
         check(flushes <= (reps if flush else 0) + 1,
               f"{flushes} flush kernels in {reps} calls: the timed call launches their kind")
         if calls and len(calls) % reps == 0:
-            break
-    check(bool(calls) and len(calls) % reps == 0,
-          f"the profiler saw {len(calls)} kernels of {reps} calls (and {flushes} flushes)")
-    busy = sum(e.time_range.elapsed_us() for e in calls)
-    return {"ms": busy / 1e3 / reps, "loop_ms": loop, "host_ms": host}
+            busy = sum(e.time_range.elapsed_us() for e in calls)
+            return {"ms": busy / 1e3 / reps, "loop_ms": loop, "host_ms": host}
+        sessions.append(calls)
+    return {"ms": pooled_call_ms(sessions, reps), "loop_ms": loop, "host_ms": host}
+
+
+def pooled_call_ms(sessions: list, reps: int) -> float:
+    """A call's device ms from profiler sessions of ``reps`` calls each of
+    which dropped records: for each kernel name, the mean time of its
+    records in all sessions times its launches a call (the most records a
+    session kept of it over ``reps``, rounded), summed over names."""
+    durations, most = {}, {}
+    for calls in sessions:
+        seen = {}
+        for e in calls:
+            durations.setdefault(e.name, []).append(e.time_range.elapsed_us())
+            seen[e.name] = seen.get(e.name, 0) + 1
+        for name, n in seen.items():
+            most[name] = max(most.get(name, 0), n)
+    per_call = {name: round(n / reps) for name, n in most.items()}
+    check(any(per_call.values()),
+          f"the profiler kept fewer than half of each kernel's {reps} calls in {len(sessions)} sessions "
+          f"({sum(map(len, sessions))} records)")
+    log(f"  (profiler: every session dropped records; {', '.join(f'{k} x{v}' for k, v in per_call.items())}"
+        f" a call, each at the mean of {sum(map(len, sessions))} records)")
+    return sum(statistics.fmean(durations[name]) * k for name, k in per_call.items()) / 1e3
 
 
 def sm_clock_mhz() -> float:
@@ -1307,6 +1344,216 @@ def sharded_phase(torch, card: str, dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ apps
+
+
+def registry_checks(torch, card: str, dev) -> dict:
+    """Every non-subsumed entry of the port's block registry resolves; the
+    ops it resolves to run on the card and on CPU tensors from the same
+    seeded numpy inputs: ``HeaderLdpcDecoder`` (B=1536, 25 iterations; bits
+    and flags bit for bit, K5 launched once), ``BatchedCrcAppend`` /
+    ``BatchedCrcCheck`` (four swap/skip options, exact), ``binary_slice``
+    and ``descramble_soft`` (exact), ``pfb_symbol_filter`` (within 1e-5 of
+    the largest output) and ``vv_phase_estimate`` (within 1e-5 rad). These
+    launches are comparisons, not the main path's."""
+    from gr4_packet_modem_tpu_torch import registry
+    from gr4_packet_modem_tpu_torch.ops import _build, costas, crc, fir, ldpc, packing, scramble
+    from gr4_packet_modem_tpu_torch.utils.firdes import rx_pfb_taps
+    from gr4_packet_modem_tpu_torch.utils.stimulus import ldpc_encode_bytes
+
+    cpu = torch.device("cpu")
+    names = [k for k, e in registry.BLOCK_REGISTRY.items() if e.kind != "subsumed"]
+    for k in names:
+        check(registry.resolve(k) is not None, f"registry: {k} does not resolve")
+    out = {"resolved": len(names)}
+
+    def both(fn, *arrays):
+        """``fn`` on the card and on the CPU: (card result on the host, CPU result)."""
+        a = fn(*(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in arrays))
+        b = fn(*(torch.from_numpy(np.ascontiguousarray(x)) for x in arrays))
+        cast = (lambda t: [u.cpu() for u in t]) if isinstance(a, tuple) else (lambda t: t.cpu())
+        return cast(a), b
+
+    rng = np.random.default_rng(8)
+    b = 1536
+    headers = rng.integers(0, 256, (b, 4), dtype=np.uint8)
+    cw = np.unpackbits(np.stack([ldpc_encode_bytes(h)[:16] for h in headers]), axis=1)
+    sigma = np.sqrt(1.0 / (2 * 10 ** (rng.uniform(-6, 4, (b, 1)) / 10)))
+    llr = ((2.0 / sigma**2) * (1.0 - 2.0 * cw + sigma * rng.standard_normal(cw.shape))).astype(np.float32)
+    card_dec, cpu_dec = ldpc.HeaderLdpcDecoder(25, device=dev), ldpc.HeaderLdpcDecoder(25, device=cpu)
+    before = _build.launch_counts()["ldpc"]
+    bits, ok = card_dec.decode(torch.from_numpy(llr).to(dev))
+    torch.cuda.synchronize()
+    k5 = _build.launch_counts()["ldpc"] - before
+    cbits, cok = cpu_dec.decode(torch.from_numpy(llr))
+    check(k5 == 1, f"HeaderLdpcDecoder launched K5 {k5} times, not once")
+    check(torch.equal(bits.cpu(), cbits) and torch.equal(ok.cpu(), cok),
+          "HeaderLdpcDecoder: the card's bits or flags differ from the CPU's")
+    out["header_decoder"] = {"batch": b, "ok": int(cok.sum()), "k5_launches": k5}
+    log(f"  HeaderLdpcDecoder B={b}: bits and flags equal to the CPU's ({int(cok.sum())} ok), "
+        f"K5 launched {k5}x")
+
+    max_len, n = 1536, 64
+    lens = rng.integers(8, max_len + 1, n).astype(np.int64)
+    lens[:3] = [0, 3, 7]  # not longer than the skipped header or the CRC
+    data = np.zeros((n, max_len), np.uint8)
+    for i, m in enumerate(lens):
+        data[i, :m] = rng.integers(0, 256, m, dtype=np.uint8)
+    for swap in (False, True):
+        for skip in (0, 3):
+            app = crc.BatchedCrcAppend(max_len, swap, skip)
+            (o, ol), (co, col) = both(app.append, data, lens)
+            check(torch.equal(o, co) and torch.equal(ol, col), f"BatchedCrcAppend swap={swap} skip={skip}: card != CPU")
+            bad = co.numpy().copy()
+            bad[5, skip] ^= 0xFF
+            for d in (co.numpy(), bad):
+                (k_ok, k_out, k_len), (c_ok, c_out, c_len) = both(
+                    crc.BatchedCrcCheck(max_len + 4, swap, skip).check, d, col.numpy())
+                check(torch.equal(k_ok, c_ok) and torch.equal(k_out, c_out) and torch.equal(k_len, c_len),
+                      f"BatchedCrcCheck swap={swap} skip={skip}: card != CPU")
+            check(bool(c_ok[3:].sum() == n - 4) and not bool(c_ok[5]), "BatchedCrcCheck: wrong ok flags")
+    log(f"  BatchedCrcAppend / BatchedCrcCheck ({n} packets up to {max_len} B, swap x skip): card == CPU")
+
+    soft = rng.standard_normal((b, 2 * 6160)).astype(np.float32)
+    for name, fn in (("binary_slice", packing.binary_slice), ("descramble_soft", scramble.descramble_soft)):
+        a, c = both(fn, soft)
+        check(torch.equal(a, c), f"{name}: card != CPU")
+    x = (rng.standard_normal(1 << 16) + 1j * rng.standard_normal(1 << 16)).astype(np.complex64)
+    taps = rx_pfb_taps(4, 32)
+    a, c = both(lambda t: fir.pfb_symbol_filter(t, 20_000, 13, taps, 32, 6352), x)
+    rel = float((a - c).abs().max() / c.abs().max())
+    check(rel <= 1e-5, f"pfb_symbol_filter: card {rel:.3e} from the CPU's (> 1e-5 of the largest output)")
+    a, c = both(lambda t: costas.vv_phase_estimate(t.view(8, -1)), x)
+    rad = float((a - c).abs().max())
+    check(rad <= 1e-5, f"vv_phase_estimate: card {rad:.3e} rad from the CPU's (> 1e-5)")
+    out.update(pfb_symbol_filter_rel_err=rel, vv_phase_estimate_err_rad=rad)
+    log(f"  binary_slice, descramble_soft exact; pfb_symbol_filter {rel:.3e} of the largest output; "
+        f"vv_phase_estimate {rad:.3e} rad  [{card}]")
+    return out
+
+
+def quiet(*_):
+    pass
+
+
+def apps_phase(torch, card: str, dev, seconds: float = 3.0, count: int = 100,
+               throttle_seconds: float = 2.0) -> dict:
+    """The apps, driven in this process through their ``run()`` on the
+    card at their own defaults (full width: 1536-byte payloads, 4
+    frequency bins a side, fused acquisition, the Costas carrier):
+
+    - the registry (:func:`registry_checks`);
+    - ``packet_transmitter_pdu`` (``count`` x 1500 B, 16 a call) to a file
+      under ``build/apps/``, burst and stream mode, then
+      ``packet_receiver_file`` on it: every packet byte-exact at its sample
+      index, through every kernel; its rate;
+    - ``packet_transceiver`` in its self-test loopback (no TUN) at Es/N0 20
+      dB, burst mode with CFO 0.005 and SFO 1.2 ppm and stream mode with
+      CFO 0.005, each for ``seconds`` unthrottled and ``seconds`` at the
+      app's 3.2 Msps: every packet sent received byte-exact after the
+      flush, through all six kernels; ``ProbeRate``'s average, packets/s,
+      whether 3.2 Msps held, the median split of a loop (TX and channel
+      together, throttle, RX); then the TX and the channel (with and
+      without SFO) apart at the loop's shapes, each to a synchronise, with
+      their device busy time and operations;
+    - ``packet_transmitter_pdu_throttle`` for ``throttle_seconds`` at 3.2
+      Msps: the achieved average beside the target.
+
+    No TUN device is opened: ``io/tun.py::TunDevice`` needs CAP_NET_ADMIN,
+    and only the CPU tests hold the native library (its SPSC ring)."""
+    from gr4_packet_modem_tpu_torch.apps import (
+        packet_receiver_file, packet_transceiver, packet_transmitter_pdu,
+        packet_transmitter_pdu_throttle,
+    )
+    from gr4_packet_modem_tpu_torch.models.channel import awgn, rotate, sfo
+    from gr4_packet_modem_tpu_torch.models.transmitter import Transmitter, TxConfig
+    from gr4_packet_modem_tpu_torch.ops import _build
+    from gr4_packet_modem_tpu_torch.runtime.streaming import StreamingTransmitter
+    from gr4_packet_modem_tpu_torch.utils import constants as C
+
+    out = {"registry": registry_checks(torch, card, dev)}
+    device = ["--device", str(dev)]
+    workdir = os.path.join(ROOT, "build", "apps")
+    os.makedirs(workdir, exist_ok=True)
+    payload = (np.arange(1500) % 256).astype(np.uint8)
+    for mode in ("burst", "stream"):
+        path = os.path.join(workdir, f"{mode}.c64")
+        tx = packet_transmitter_pdu.run([path, mode, "1500", str(count), *device], echo=quiet)
+        rx, launches = path_launches(
+            torch, f"packet_receiver_file {mode}",
+            lambda: packet_receiver_file.run([path, *device], echo=quiet), _build.KERNELS)
+        per = 4 * (C.stream_symbols(1500) if mode == "stream" else C.burst_symbols(1500))
+        got = rx["packets"]
+        check_all([p.data for p in got], [payload] * count, f"TX app -> file -> RX app, {mode}")
+        check([p.index for p in got] == [k * per for k in range(count)],
+              f"RX app {mode}: sample indices {[p.index for p in got][:4]}..., not k * {per}")
+        log(f"  packet_receiver_file {mode}: {rx['samples']} samples in {rx['seconds']:.3f} s, "
+            f"{rx['rate_sps']:.4e} samples/s (file read, receive and flush)  [{card}]")
+        out[f"file_{mode}"] = {"samples": rx["samples"], "tx_samples": tx["samples"],
+                               "seconds": rx["seconds"], "rate_sps": rx["rate_sps"],
+                               "packets": rx["count"], "launches": launches}
+        os.remove(path)
+
+    target = 3.2e6
+    for mode, extra in (("burst", ["--cfo", "0.005", "--sfo", "1.2"]), ("stream", ["--stream", "--cfo", "0.005"])):
+        for rate_label, rate in (("unthrottled", 1e12), ("3.2Msps", target)):
+            label = f"transceiver {mode} {rate_label}"
+            argv = [*device, "--seconds", str(seconds), "--samp-rate", str(rate), *extra]
+            res, launches = path_launches(
+                torch, label, lambda: packet_transceiver.run(argv, echo=quiet), _build.KERNELS)
+            check(res["sent"] > 0 and res["received"] == res["sent"],
+                  f"{label}: received {res['received']} of {res['sent']} packets")
+            check_all([p.data for p in res["decoded"]], res["sent_payloads"], label)
+            sps = res["samples"] / res["seconds"]
+            pps = res["sent"] / res["seconds"]
+            avg = res["reports"][-1].rate_avg if res["reports"] else float("nan")
+            sp, mean = res["split_ms"], res["split_mean_ms"]
+            r = {"sent": res["sent"], "loops": res["loops"], "seconds": res["seconds"],
+                 "samples": res["samples"], "samples_per_s": sps, "packets_per_s": pps,
+                 "rate_avg": avg, "split_ms": sp, "split_mean_ms": mean, "launches": launches}
+            held = ""
+            if rate == target:
+                r["held_real_time"] = sps >= 0.98 * target
+                held = f"; 3.2 Msps real time {'held' if r['held_real_time'] else 'NOT held'}"
+            log(f"  {label}: {res['sent']} packets in {res['loops']} loops, {res['seconds']:.2f} s: "
+                f"{sps:.4e} samples/s, {pps:.1f} packets/s, ProbeRate avg {avg:.4e}{held}"
+                + "; loop split (median / mean ms): "
+                + ", ".join(f"{k} {sp[k]:.3f} / {mean[k]:.3f}" for k in ("tx_channel", "throttle", "rx"))
+                + f"  [{card}]")
+            out[f"transceiver_{mode}_{rate_label}"] = r
+
+    # the loop's TX and channel apart, at the app's shapes (4 x 256 B a
+    # call): the app issues both and waits only at the host copy, so each is
+    # timed here to a synchronise, with its device busy time and operations
+    payloads = [(np.arange(256) + k).astype(np.uint8) for k in range(packet_transceiver.PACKETS_PER_LOOP)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stages = {}
+    for mode in ("burst", "stream"):
+        stx = StreamingTransmitter(Transmitter(TxConfig(max_payload_len=1536, stream_mode=mode == "stream"), dev))
+        stages[f"tx_{mode}"] = getattr(stx, mode)
+    sig = stages["tx_burst"](payloads)
+    stages["channel_sfo"] = lambda _: awgn(rotate(sfo(sig, 1.2), 0.005), 0.01, gen)
+    stages["channel"] = lambda _: awgn(rotate(sig, 0.005), 0.01, gen)
+    split = {}
+    for name, fn in stages.items():
+        ms = median_ms(torch, lambda: fn(payloads))
+        busy, ops = busy_ms(torch, lambda: fn(payloads))
+        split[name] = {"ms": ms, "busy_ms": busy, "device_ops": ops}
+    log("  transceiver loop stages (median ms to a synchronise; device busy ms in operations): "
+        + ", ".join(f"{k} {v['ms']:.3f}; {v['busy_ms']:.3f} in {v['device_ops']:.0f}" for k, v in split.items())
+        + f"  [{card}]")
+    out["transceiver_stages"] = split
+
+    res = packet_transmitter_pdu_throttle.run(["burst", str(target), *device], seconds=throttle_seconds,
+                                              echo=quiet)
+    avg = res["reports"][-1].rate_avg if res["reports"] else float("nan")
+    log(f"  packet_transmitter_pdu_throttle: rate_avg {avg:.4e} against the target {target:.4e} "
+        f"samples/s ({res['calls']} calls of 8 x 1500 B in {throttle_seconds:.0f} s)  [{card}]")
+    out["throttle"] = {"target": target, "rate_avg": avg, "calls": res["calls"]}
+    return out
+
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "gr4_packet_modem_tpu_torch")):
         raise SystemExit("chip_smoke: gr4_packet_modem_tpu_torch/ is missing: run it from a checkout of the repo")
@@ -1368,6 +1615,10 @@ def main() -> int:
     perres = per_phase(torch, card, dev)
     log("sharded:")
     shres = sharded_phase(torch, card, dev)
+
+    # phase 11: the registry's ops and the apps
+    log("apps:")
+    appres = apps_phase(torch, card, dev)
     import gr4_packet_modem_tpu_torch.io.zmq_pub  # noqa: F401  (the taps' publisher, no pyzmq here)
 
     check("jax" not in sys.modules, "jax was imported")
@@ -1387,7 +1638,7 @@ def main() -> int:
         json.dump({"card": card, "kernels": kernels, "kernel_rows": kres["rows"],
                    "launch_floor_ms": kres["launch_floor_ms"], "slice": sres,
                    "streaming": stres, "taps": tapres, "tx": txres, "transceiver": trxres,
-                   "per": perres, "sharded": shres,
+                   "per": perres, "sharded": shres, "apps": appres,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

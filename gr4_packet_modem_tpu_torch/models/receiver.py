@@ -41,11 +41,10 @@ from ..ops.costas import PI, TWO_PI
 from ..ops.costas_cuda import costas_track
 from ..ops.crc import crc32_compute
 from ..ops.fetch_cuda import fetch_regions
-from ..ops.ldpc import combine_repetition, edge_tables, finish
-from ..ops.ldpc_cuda import ldpc_totals
+from ..ops.ldpc import HeaderLdpcDecoder, combine_repetition
 from ..ops.matched_cuda import matched_filter
-from ..ops.packing import pack_bits
-from ..ops.scramble import keystream_np
+from ..ops.packing import binary_slice, pack_bits
+from ..ops.scramble import descramble_soft, keystream_np
 from .tables import receiver_tables, tables_from_numpy
 
 __all__ = [
@@ -208,6 +207,7 @@ class Receiver(nn.Module):
         for name, value in tables_from_numpy(tables).items():
             self.register_buffer(name, value.to(device))
         self.arm_len = self.arm_taps.shape[1]
+        self.header_decoder = HeaderLdpcDecoder(config.ldpc_iterations, device=device)
         self._derive_tables()
         s_pay = config.max_payload_syms
         ks = keystream_np(C.HEADER_LLRS + 2 * s_pay).astype(bool)
@@ -221,16 +221,11 @@ class Receiver(nn.Module):
         )
 
     def _derive_tables(self) -> None:
-        """Tables computed from the carried ones: the acquirer's, the LDPC
-        index tables and the V&V interpolation tables."""
+        """Tables computed from the carried ones: the acquirer's, the header
+        decoder's and the V&V interpolation tables."""
         self.acquirer.derive_tables()
-        chk_vars, var_edges = edge_tables(
-            self.ldpc_vidx.cpu().numpy(), self.ldpc_vmask.cpu().numpy(),
-            self.ldpc_h.shape[1],
-        )
+        self.header_decoder.set_tables(self.ldpc_vidx, self.ldpc_vmask, self.ldpc_h)
         dev = self.ldpc_vidx.device
-        self.register_buffer("ldpc_chk_vars", torch.tensor(chk_vars, device=dev), persistent=False)
-        self.register_buffer("ldpc_var_edges", torch.tensor(var_edges, device=dev), persistent=False)
         # V&V: each payload symbol's two block centres and its weight
         # (_vv_track), made here so that a step copies nothing to the card
         blk, s = self.config.vv_block, self.config.max_payload_syms
@@ -361,13 +356,8 @@ class Receiver(nn.Module):
         llrs = torch.view_as_real(hdr_syms).reshape(
             hdr_syms.shape[0], -1
         ) * self.llr_scale
-        llrs = torch.where(self.ks_header, -llrs, llrs)
-        comb = combine_repetition(llrs).contiguous()
-        total = ldpc_totals(
-            comb, self.ldpc_chk_vars, self.ldpc_var_edges,
-            self.config.ldpc_iterations,
-        )
-        bits, ldpc_ok = finish(total, self.ldpc_h)
+        comb = combine_repetition(descramble_soft(llrs, self.ks_header)).contiguous()
+        bits, ldpc_ok = self.header_decoder.decode(comb)
         hdr_bytes = pack_bits(bits, 8)  # [D, 4]
         packet_length = hdr_bytes[:, 0] << 8 | hdr_bytes[:, 1]
         type_field = hdr_bytes[:, 2]
@@ -497,8 +487,7 @@ class Receiver(nn.Module):
         llrs = torch.view_as_real(corrected).reshape(
             corrected.shape[0], -1
         ) * self.llr_scale  # [D, 2*s_pay]
-        llrs = torch.where(self.ks_payload, -llrs, llrs)
-        bits = (llrs < 0).to(torch.uint8)  # invert=true slicer
+        bits = binary_slice(descramble_soft(llrs, self.ks_payload))  # invert=true slicer
         all_bytes = pack_bits(bits, 8).to(torch.uint8)  # [D, s_pay/4]
         plen = hdr.packet_length
         pos = torch.arange(cfg.max_payload_len, device=x.device)

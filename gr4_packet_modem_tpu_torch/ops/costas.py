@@ -6,6 +6,8 @@ at header bandwidth, QPSK at payload bandwidth), so a batch of packets runs
 as one recursion over the symbol index with the batch vectorised.
 :func:`costas_run` is that recursion as a Python loop over symbols: it is
 the plain version of the CUDA kernel in ``ops/costas_cuda.py``.
+:func:`vv_phase_estimate` is the feed-forward (recursion-free) Viterbi &
+Viterbi phase estimate of the JAX package.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from ..utils import constants as C
 
 __all__ = [
     "costas_coefficients", "costas_gains", "costas_segments", "costas_run",
-    "PI", "TWO_PI",
+    "vv_phase_estimate", "PI", "TWO_PI",
 ]
 
 # float32 pi and 2*pi as Python floats: comparisons and wraps then use the
@@ -128,3 +130,28 @@ def costas_run(
         out_re[:, s] = zr
         out_im[:, s] = zi
     return torch.complex(out_re, out_im), phase, freq
+
+
+def vv_phase_estimate(symbols: torch.Tensor, block: int = 32) -> torch.Tensor:
+    """Feed-forward Viterbi&Viterbi 4th-power phase estimate per symbol
+    (QPSK) of ``symbols`` complex64 ``[..., S]``: block-averaged, the block
+    steps wrapped to [-pi, pi] and summed, divided by 4, less pi/4, and
+    held over each block (the last block's value over the tail). Needs
+    ``S >= block``. Returns float32 ``[..., S]``."""
+    s = symbols.shape[-1]
+    nb = s // block
+    if nb == 0:
+        raise ValueError(f"vv_phase_estimate needs at least one block of {block} symbols, got {s}")
+    z2 = symbols * symbols
+    z4 = z2 * z2  # x**4 as two squarings, as the JAX package's integer power
+    zb = z4[..., : nb * block].reshape(*symbols.shape[:-1], nb, block).mean(-1)
+    ph4 = torch.angle(zb)
+    ph4 = torch.cat([ph4[..., :1], torch.diff(ph4, dim=-1)], dim=-1)
+    ph4 = torch.where(ph4 > PI, ph4 - TWO_PI, ph4)
+    ph4 = torch.where(ph4 < -PI, ph4 + TWO_PI, ph4)
+    phase = torch.cumsum(ph4, dim=-1) / 4.0 - float(np.float32(np.pi / 4.0))
+    up = phase.repeat_interleave(block, dim=-1)
+    pad = s - up.shape[-1]
+    if pad:
+        up = torch.cat([up, up[..., -1:].expand(*up.shape[:-1], pad)], dim=-1)
+    return up

@@ -1,6 +1,6 @@
 """Polyphase FIR filters (port of ``gr4_packet_modem_tpu/ops/fir.py``:
-``interpolating_fir``, ``stream_interpolating_fir`` and
-``pfb_arb_resample``).
+``interpolating_fir``, ``stream_interpolating_fir``, ``pfb_symbol_filter``
+and ``pfb_arb_resample``).
 
 - ``interpolating_fir``: the TX pulse shaper (interpolating_fir_filter.hpp).
   Polyphase branch j of output symbol s is ``sum_k taps[j + I*k] *
@@ -9,6 +9,11 @@
   I/Q planes. Every product and sum is a float32 elementwise operation:
   no matmul or convolution, so no TF32 setting of cuBLAS or cuDNN changes
   the samples.
+- ``pfb_symbol_filter``: the RX matched filter and decimator of one packet
+  (symbol_filter.hpp) at a fixed polyphase arm: a plain slice of the
+  samples, then one multiply-add per tap of the arm, elementwise as the TX
+  FIR does. The receiver runs the batched form on the card as K2 and K3
+  (``models/receiver.py::Receiver._extract_symbols``).
 - ``pfb_arb_resample``: the channel model's arbitrary resampler
   (pfb_arb_resampler.hpp). Output sample times are known in closed form,
   so each output's arm, fractional weight and input window follow from its
@@ -24,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["interpolating_fir", "stream_interpolating_fir", "pfb_arb_resample"]
+__all__ = ["interpolating_fir", "stream_interpolating_fir", "pfb_symbol_filter", "pfb_arb_resample"]
 
 
 def _polyphase(taps, branches: int, device) -> torch.Tensor:
@@ -75,6 +80,43 @@ def stream_interpolating_fir(
     x = torch.cat([carry, symbols], dim=-1)
     y = interpolating_fir(x, taps, i)[..., (kk - 1) * i :]
     return x[..., x.shape[-1] - (kk - 1) :], y
+
+
+def pfb_symbol_filter(
+    samples: torch.Tensor,
+    start,
+    arm,
+    pfb_taps,
+    num_arms: int,
+    num_symbols: int,
+    sps: int = 4,
+) -> torch.Tensor:
+    """Matched-filter and decimate one packet to 1 sample/symbol.
+
+    ``samples``: the (frequency-corrected) sample buffer ``[N]``; ``start``:
+    the sample at which symbol 0 is output (the newest history sample of
+    the first inner product, symbol_filter.hpp:208-238); ``arm``: the
+    polyphase arm of the fractional time estimate. ``start`` and ``arm``
+    are ints or 0-d tensors. Output symbol s is ``sum_k taps[arm + A*k] *
+    samples[start + sps*s - k]`` ``[num_symbols]``. The window's first
+    sample is placed as ``lax.dynamic_slice`` places it: a negative one
+    counts from the end, then it is clamped into the buffer."""
+    n, a = samples.shape[0], int(num_arms)
+    if not isinstance(pfb_taps, torch.Tensor):
+        pfb_taps = torch.tensor(np.asarray(pfb_taps, np.float32))
+    pfb_taps = pfb_taps.to(device=samples.device, dtype=torch.float32)
+    kk = pfb_taps.shape[0] // a
+    arm_taps = pfb_taps[int(arm) : int(arm) + a * kk : a]  # taps[arm + A*k]
+    region_len = sps * (num_symbols - 1) + kk
+    base = int(start) - (kk - 1)
+    base = min(max(base + n if base < 0 else base, 0), n - region_len)
+    xa = _planes(samples[base : base + region_len])  # [R, P]
+    span = sps * (num_symbols - 1) + 1
+    y = xa.new_zeros(num_symbols, xa.shape[-1])
+    for k in range(kk):
+        # xa[(kk-1) + sps*s - k] for every s
+        y.addcmul_(xa[kk - 1 - k : kk - 1 - k + span : sps], arm_taps[k])
+    return _unplanes(y, samples.is_complex())
 
 
 def pfb_arb_resample(

@@ -9,7 +9,10 @@ table (the 96 checks have degree 3 to 5). :func:`ldpc_totals_plain` is the
 counterpart of the JAX scan decoder (``HeaderLdpcDecoder.decode``) and the
 plain version of the CUDA kernel in ``ops/ldpc_cuda.py``. Both sum each
 variable's incoming messages in the order of :func:`edge_tables`, so they
-agree bit for bit.
+agree bit for bit. :class:`HeaderLdpcDecoder` is the block-level decoder
+(HeaderFecDecoder): BP through ``ops/ldpc_cuda.py::ldpc_totals`` (the
+kernel K5 on CUDA tensors, the plain version on CPU tensors), then
+:func:`finish`.
 """
 
 from __future__ import annotations
@@ -19,12 +22,14 @@ from importlib import resources
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..utils import constants as C
 
 __all__ = [
     "load_generator", "encode_header", "load_parity_check", "decoder_tables", "edge_tables",
-    "combine_repetition", "ldpc_totals_plain", "finish",
+    "combine_repetition", "ldpc_totals_plain", "finish", "HeaderLdpcDecoder",
+    "make_header_decoder",
 ]
 
 
@@ -166,3 +171,53 @@ def finish(total: torch.Tensor, h: torch.Tensor) -> tuple[torch.Tensor, torch.Te
     syndrome = torch.matmul(hard.to(h.dtype), h.T)
     ok = ((syndrome.round().to(torch.int64) & 1) == 0).all(dim=-1)
     return hard[:, : C.HEADER_LDPC_K], ok
+
+
+class HeaderLdpcDecoder(nn.Module):
+    """Batched normalised min-sum BP decoder for the (128,32) header code
+    on ``device``, its index tables (:func:`edge_tables`) and parity-check
+    matrix held as buffers: those of :func:`decoder_tables`, or the ones
+    given to :meth:`set_tables` (the receiver's carried tables)."""
+
+    def __init__(
+        self,
+        num_iterations: int = 25,
+        normalization: float = 0.75,
+        device: str | torch.device = "cuda",
+    ):
+        super().__init__()
+        self.num_iterations = int(num_iterations)
+        self.normalization = float(normalization)
+        dev = torch.device(device)
+        t = {k: torch.from_numpy(v).to(dev) for k, v in decoder_tables().items()}
+        self.set_tables(t["vidx"], t["vmask"], t["h"])
+
+    def set_tables(self, vidx: torch.Tensor, vmask: torch.Tensor, h: torch.Tensor) -> None:
+        """Decode with ``vidx``/``vmask``/``h`` (:func:`decoder_tables`'
+        layout, on the decoder's device): ``h`` is held as it is, the index
+        tables are built from the other two."""
+        chk_vars, var_edges = edge_tables(vidx.cpu().numpy(), vmask.cpu().numpy(), h.shape[1])
+        self.register_buffer("chk_vars", torch.from_numpy(chk_vars).to(h.device), persistent=False)
+        self.register_buffer("var_edges", torch.from_numpy(var_edges).to(h.device), persistent=False)
+        self.register_buffer("h", h, persistent=False)
+
+    def decode(self, llrs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Decode a batch of codewords: ``llrs`` float32 ``[B, 128]`` on the
+        decoder's device, positive = bit 0 more likely (the modem's LLR
+        convention, constellation_llr_decoder.hpp:24-27). Returns
+        ``(info_bits uint8 [B, 32], ok bool [B])``, ``ok`` the parity-check
+        success flag."""
+        from .ldpc_cuda import ldpc_totals  # ldpc_cuda imports this module
+
+        total = ldpc_totals(
+            llrs.to(torch.float32).contiguous(), self.chk_vars, self.var_edges,
+            self.num_iterations, self.normalization,
+        )
+        return finish(total, self.h)
+
+
+@lru_cache(maxsize=4)
+def make_header_decoder(
+    num_iterations: int = 25, device: str | torch.device = "cuda"
+) -> HeaderLdpcDecoder:
+    return HeaderLdpcDecoder(num_iterations=num_iterations, device=device)

@@ -1,6 +1,7 @@
 """Bit packing and constellation mapping (port of
 ``gr4_packet_modem_tpu/ops/packing.py``: ``unpack_bits``, ``pack_bits``,
-``bytes_to_bits``, ``bits_to_bytes`` and ``map_symbols``).
+``bytes_to_bits``, ``bits_to_bytes``, ``map_symbols`` and
+``binary_slice``).
 
 PyTorch's unsigned 32-bit type has few operators, so packed words are
 returned as int64 holding the same values as the JAX package's uint32.
@@ -10,7 +11,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["unpack_bits", "pack_bits", "bytes_to_bits", "bits_to_bytes", "map_symbols"]
+__all__ = [
+    "unpack_bits", "pack_bits", "bytes_to_bits", "bits_to_bytes", "map_symbols", "binary_slice",
+]
 
 
 def _shifts(k: int, bits: int, msb_first: bool, device) -> torch.Tensor:
@@ -63,3 +66,9 @@ def bits_to_bytes(bits: torch.Tensor) -> torch.Tensor:
 def map_symbols(indices: torch.Tensor, constellation: torch.Tensor) -> torch.Tensor:
     """Constellation lookup (mapper.hpp): index -> complex point."""
     return constellation[indices.to(torch.int64)]
+
+
+def binary_slice(llrs: torch.Tensor, invert: bool = True) -> torch.Tensor:
+    """Hard-decide soft values (binary_slicer.hpp). ``invert=True`` maps a
+    positive LLR to bit 0 (the modem's LLR convention). Returns uint8."""
+    return (llrs < 0 if invert else llrs > 0).to(torch.uint8)

@@ -1,5 +1,5 @@
 """Additive scrambler (port of ``gr4_packet_modem_tpu/ops/scramble.py``:
-``keystream`` and ``scramble_bits``).
+``keystream``, ``scramble_bits`` and ``descramble_soft``).
 
 The scrambler restarts at every packet, so every packet sees the same fixed
 bit sequence; it comes from this package's numpy LFSR (``utils/lfsr.py``)
@@ -16,7 +16,7 @@ import torch
 
 from ..utils.lfsr import additive_scrambler_keystream
 
-__all__ = ["keystream", "keystream_np", "scramble_bits"]
+__all__ = ["keystream", "keystream_np", "scramble_bits", "descramble_soft"]
 
 
 @lru_cache(maxsize=8)
@@ -40,3 +40,13 @@ def scramble_bits(bits: torch.Tensor, ks: torch.Tensor | None = None) -> torch.T
     if ks is None:
         ks = keystream(n, bits.device)
     return bits ^ ks[:n].to(bits.dtype)
+
+
+def descramble_soft(llrs: torch.Tensor, ks: torch.Tensor | None = None) -> torch.Tensor:
+    """Sign-flip soft values ``[..., N]`` where the keystream bit is 1
+    (additive_scrambler.hpp:89-93 soft-symbol branch). ``ks`` as in
+    :func:`scramble_bits`."""
+    n = llrs.shape[-1]
+    if ks is None:
+        ks = keystream(n, llrs.device)
+    return torch.where(ks[:n].to(torch.bool), -llrs, llrs)

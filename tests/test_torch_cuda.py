@@ -230,3 +230,38 @@ def test_sharded_bank_world_one_nccl(dev):
     assert len(want) == 8
     assert [(p.channel, p.index, p.data.tobytes(), p.arm) for p in got] == \
         [(p.channel, p.index, p.data.tobytes(), p.arm) for p in want]
+
+
+@pytest.mark.parametrize("b", [1, 300, 1537])
+def test_header_decoder_card_matches_cpu(dev, b):
+    """``HeaderLdpcDecoder`` on the card (one K5 launch a call) gives the
+    CPU decoder's bits and flags bit for bit, failing codewords included."""
+    from gr4_packet_modem_tpu_torch.utils.stimulus import ldpc_encode_bytes
+
+    rng = np.random.default_rng(b)
+    headers = rng.integers(0, 256, (b, 4), dtype=np.uint8)
+    cw = np.unpackbits(np.stack([ldpc_encode_bytes(h)[:16] for h in headers]), axis=1)
+    sigma = np.sqrt(1.0 / (2 * 10 ** (rng.uniform(-6, 4, (b, 1)) / 10)))
+    llr = ((2.0 / sigma**2) * (1.0 - 2.0 * cw + sigma * rng.standard_normal(cw.shape))).astype(np.float32)
+    before = _build.launch_counts()["ldpc"]
+    bits, ok = ldpc.HeaderLdpcDecoder(25, device=dev).decode(torch.from_numpy(llr).to(dev))
+    assert _build.launch_counts()["ldpc"] == before + 1
+    cbits, cok = ldpc.HeaderLdpcDecoder(25, device="cpu").decode(torch.from_numpy(llr))
+    assert torch.equal(bits.cpu(), cbits) and torch.equal(ok.cpu(), cok)
+
+
+def test_transceiver_app_burst_loopback_on_card(dev):
+    """The transceiver app in burst mode on the card (CFO 0.005, SFO 1.2
+    ppm): every packet sent is received byte-exact, through all six
+    kernels."""
+    from gr4_packet_modem_tpu_torch.apps import packet_transceiver
+
+    _build.reset_launch_counts()
+    res = packet_transceiver.run(
+        ["--device", "cuda", "--seconds", "1", "--cfo", "0.005", "--sfo", "1.2", "--samp-rate", "1e12"],
+        echo=lambda *a: None,
+    )
+    launches = _build.launch_counts()
+    assert res["sent"] >= 4 and res["received"] == res["sent"] == len(res["sent_payloads"])
+    assert all(np.array_equal(p.data, q) for p, q in zip(res["decoded"], res["sent_payloads"]))
+    assert all(launches[k] > 0 for k in _build.KERNELS), launches
