@@ -84,7 +84,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    byte-exact, all six kernels launched) with its rates and loop split,
    the loop's TX and channel timed apart, and the throttle app at 3.2 Msps. No TUN device is opened
    (``TunDevice`` needs CAP_NET_ADMIN; the CPU tests hold the native
-   library).
+   library);
+12. examples: every example of ``gr4_packet_modem_tpu_torch/examples/``
+   through its ``run(["--device", "cuda"])`` (``tun_loopback`` in demo
+   mode), the three mesh examples on one spawned NCCL rank (a 1 x 1 mesh),
+   each held to its own checks and to its outcome (byte-exact payloads at
+   their indices, the PER curve's ends, the header examples' bits and
+   flags equal to their CPU runs'); K1 and K2b launched by
+   ``syncword_detection``, K5 by the header examples, all six by every
+   other receiving example. One line an example: its wall time, outcome
+   and launches.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; each path of the receiver must have launched every kernel.
@@ -967,7 +976,7 @@ class ListSink:
         self.msgs.append(np.asarray(pdu))
 
 
-def path_launches(torch, label: str, fn, need=()):
+def path_launches(torch, label: str, fn, need=(), show: bool = True):
     """Run ``fn`` with the launch counts set to 0 just before it and read
     just after; every kernel named in ``need`` must have been launched."""
     from gr4_packet_modem_tpu_torch.ops import _build
@@ -976,7 +985,8 @@ def path_launches(torch, label: str, fn, need=()):
     out = fn()
     torch.cuda.synchronize()
     launches = _build.launch_counts()
-    log(f"  {label}: launches {launches}")
+    if show:
+        log(f"  {label}: launches {launches}")
     for k in need:
         check(launches[k] > 0, f"kernel {k} was not launched by {label}")
     return out, launches
@@ -1553,6 +1563,123 @@ def apps_phase(torch, card: str, dev, seconds: float = 3.0, count: int = 100,
     return out
 
 
+# ------------------------------------------------------------------ examples
+
+ALL_KERNELS = ("fetch", "fetch_rows", "matched", "costas", "ldpc", "correlate")
+# the kernels each example must launch on the card (fused acquisition, the
+# Costas carrier); the others run no kernel of the six
+EXAMPLE_KERNELS = {
+    "syncword_detection": ("correlate", "fetch_rows"),
+    "header_formatter": ("ldpc",),
+    "header_roundtrip": ("ldpc",),
+    **dict.fromkeys(("loopback", "streaming_blocks", "packet_ingress", "tun_loopback", "per_sweep",
+                     "receiver_bank_serving", "sharded_bank", "sharded_serving"), ALL_KERNELS),
+}
+
+
+def example_outcome(name: str, res: dict, cpu: dict | None) -> str:
+    """Check an example's result beyond its own checks; return a short
+    account of it. ``cpu``: the same example's result on CPU tensors, for
+    the examples compared with it."""
+    from gr4_packet_modem_tpu_torch.utils import constants as C
+
+    if name in ("header_formatter", "header_roundtrip"):
+        check(np.array_equal(res["bits"], cpu["bits"]) and np.array_equal(res["ok"], cpu["ok"]),
+              f"{name}: bits or flags differ from the CPU run's")
+        return f"ok flags {res['ok'].tolist()}, bits and flags equal to the CPU run's"
+    if name == "qpsk_modulator":
+        check(np.array_equal(res["symbols"], cpu["symbols"]), "qpsk_modulator: symbols differ from the CPU's")
+        return f"{res['symbols'].size} symbols equal to the CPU run's"
+    if name == "syncword_detection":
+        check(res["start"] == res["gap"] and abs(res["freq"] - res["cfo"]) < 1e-3 and res["esn0_db"] > 15,
+              f"syncword_detection: {res}")
+        return (f"start {res['start']}, freq {res['freq']:+.5f} (truth {res['cfo']:+.5f}), "
+                f"amp {res['amp']:.3f}, esn0 {res['esn0_db']:.1f} dB")
+    if name == "loopback":
+        check(res["decoded"] == res["sent"], f"loopback: decoded {res['decoded']}")
+        return f"decoded {res['decoded']}"
+    if name == "streaming_blocks":
+        sent = res["sent"]
+        starts = np.cumsum([0] + [4 * C.burst_symbols(p.size) for p in sent[:-1]]).tolist()
+        check([p.data.tobytes() for p in res["decoded"]] == [p.tobytes() for p in sent]
+              and [p.index for p in res["decoded"]] == starts, "streaming_blocks: packets or indices differ")
+        return f"{len(sent)}/{len(sent)} byte-exact at samples {starts}"
+    if name == "packet_ingress":
+        users = [p for p, t in zip(res["sent"], res["types"]) if t == int(C.PacketType.USER_DATA)]
+        check([p.data.tobytes() for p in res["decoded"]] == [p.tobytes() for p in users],
+              "packet_ingress: user packets differ")
+        return f"{len(users)} user packets byte-exact, dropped {res['dropped']}, idle filtered"
+    if name == "tun_loopback":
+        check(res["rc"] == 0, f"tun_loopback: {res['ok']} of {len(res['sent'])} byte-exact")
+        return f"demo {res['ok']}/{len(res['sent'])} IP packets byte-exact"
+    if name == "per_sweep":
+        rows = res["rows"]
+        check(rows[0][1] == 1.0 and rows[-1][1] == 0.0, f"per_sweep: the ends {rows[0]}, {rows[-1]}")
+        return "PER " + ", ".join(f"{e:.1f} dB {p:.3f}" for e, p in rows)
+    if name in ("sharded_bank", "sharded_serving", "receiver_bank_serving"):
+        least = res["expected"] - 3 if name == "receiver_bank_serving" else 3  # 3 payloads a channel
+        check(min(res["per_channel"]) >= least, f"{name}: per-channel counts {res['per_channel']}")
+        extra = ""
+        if name == "receiver_bank_serving":
+            rate = "none (step under the probe's 0.2 s)" if res["rate_avg"] is None else f"{res['rate_avg']:.6e}"
+            extra = (f"; step {res['seconds']:.3f} s ({res['samples'] / res['seconds']:.4e} samples/s), "
+                     f"ProbeRate avg {rate} samples/s")
+        return f"mesh {res['mesh']}, {res['decoded']} packets, per channel {res['per_channel']}{extra}"
+    return "own checks passed"
+
+
+def examples_phase(torch, card: str, dev) -> dict:
+    """Every example of ``gr4_packet_modem_tpu_torch/examples/`` through its
+    ``run(["--device", "cuda"])`` in this process (``tun_loopback`` in its
+    demo mode: ``--netns`` needs CAP_NET_ADMIN), the three mesh examples on
+    one spawned NCCL rank (``--world 1``, a 1 x 1 mesh; a warm-up run of
+    ``sharded_bank`` first), each with the
+    launch counts set to 0 before it and read after: the kernels of
+    :data:`EXAMPLE_KERNELS` must have been launched. The header examples'
+    bits and flags and ``qpsk_modulator``'s symbols must equal their CPU
+    runs'. One line an example: its wall time on the card (kernels built
+    already), its outcome and its launches."""
+    import importlib
+
+    from gr4_packet_modem_tpu_torch.examples import EXAMPLES, MESH_EXAMPLES, _mesh
+    from gr4_packet_modem_tpu_torch.ops import _build
+
+    check(ALL_KERNELS == _build.KERNELS, "chip_smoke.ALL_KERNELS is not _build.KERNELS")
+    out = {}
+
+    def record(name, seconds, res, launches, cpu=None):
+        for k in EXAMPLE_KERNELS.get(name, ()):
+            check(launches[k] > 0, f"kernel {k} was not launched by example {name}")
+        outcome = example_outcome(name, res, cpu)
+        log(f"  {name}: {seconds:.3f} s, {outcome}; launches {launches}  [{card}]")
+        out[name] = {"seconds": seconds, "outcome": outcome, "launches": launches}
+
+    for name in EXAMPLES:
+        if name in MESH_EXAMPLES:
+            continue
+        mod = importlib.import_module(f"gr4_packet_modem_tpu_torch.examples.{name}")
+        t0 = time.perf_counter()
+        res, launches = path_launches(torch, name, lambda: mod.run(["--device", str(dev)], echo=quiet),
+                                      EXAMPLE_KERNELS.get(name, ()), show=False)
+        seconds = time.perf_counter() - t0
+        cpu = (mod.run(["--device", "cpu"], echo=quiet)
+               if name in ("header_formatter", "header_roundtrip", "qpsk_modulator") else None)
+        record(name, seconds, res, launches, cpu)
+
+    # the mesh examples on one spawned NCCL rank, one spawn for the three;
+    # sharded_bank runs once first to take the fresh process's CUDA, FFT
+    # and NCCL set-up, which the phases before took in this one
+    jobs = [(f"gr4_packet_modem_tpu_torch.examples.{n}", ["--device", dev.type, "--world", "1"])
+            for n in ("sharded_bank", *MESH_EXAMPLES)]
+    t0 = time.perf_counter()
+    warm, *results = _mesh.spawn(jobs, 1, dev.type, echo=quiet)
+    log(f"  mesh examples: one spawned rank, {time.perf_counter() - t0:.1f} s with its start; "
+        f"sharded_bank's warm-up run {warm['run_seconds']:.3f} s  [{card}]")
+    out["mesh_warm_up_seconds"] = warm["run_seconds"]
+    for name, res in zip(MESH_EXAMPLES, results):
+        record(name, res["run_seconds"], res, res["rank_launches"][0])
+    return out
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "gr4_packet_modem_tpu_torch")):
@@ -1619,6 +1746,10 @@ def main() -> int:
     # phase 11: the registry's ops and the apps
     log("apps:")
     appres = apps_phase(torch, card, dev)
+
+    # phase 12: the examples
+    log("examples:")
+    exres = examples_phase(torch, card, dev)
     import gr4_packet_modem_tpu_torch.io.zmq_pub  # noqa: F401  (the taps' publisher, no pyzmq here)
 
     check("jax" not in sys.modules, "jax was imported")
@@ -1638,7 +1769,7 @@ def main() -> int:
         json.dump({"card": card, "kernels": kernels, "kernel_rows": kres["rows"],
                    "launch_floor_ms": kres["launch_floor_ms"], "slice": sres,
                    "streaming": stres, "taps": tapres, "tx": txres, "transceiver": trxres,
-                   "per": perres, "sharded": shres, "apps": appres,
+                   "per": perres, "sharded": shres, "apps": appres, "examples": exres,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

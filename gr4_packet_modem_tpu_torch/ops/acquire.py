@@ -282,6 +282,17 @@ class SyncwordAcquirer(nn.Module):
         corr = torch.fft.ifft(f[:, :, None, :] * rf[None, None], dim=-1)[..., :s]
         return corr.permute(0, 2, 1, 3).reshape(c, self.num_bins, nf * s)
 
+    def correlate(self, x: torch.Tensor) -> torch.Tensor:
+        """Complex correlations of ``x`` ``[T]`` (or ``[C, T]``) with every
+        replica: ``[nb, T']`` (or ``[C, nb, T']``), ``T'`` = frames *
+        stride, by overlap-save FFT. The fused backend's K1 never writes
+        these (it keeps each sample's best bin), so both backends answer
+        here through the FFT; the JAX package's ``conv`` backends are not
+        ported (:class:`AcquisitionConfig` refuses them)."""
+        single = x.ndim == 1
+        corr = self._correlate_fft(x[None] if single else x)
+        return corr[0] if single else corr
+
     def _frames_planes(self, x: torch.Tensor):
         """The fused kernel's frame views of a bank ``[C, T]``: each channel
         takes ``rows`` stride-long rows of one I/Q plane buffer (its ``F``

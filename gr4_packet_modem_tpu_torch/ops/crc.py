@@ -30,7 +30,7 @@ from ..utils import constants as C
 
 __all__ = [
     "CrcRef", "crc32_ref", "crc32_tables", "crc32_compute", "crc_bytes_be",
-    "BatchedCrcAppend", "BatchedCrcCheck",
+    "CrcEngine", "make_crc32_engine", "BatchedCrcAppend", "BatchedCrcCheck",
 ]
 
 
@@ -204,6 +204,33 @@ def _device_tables(max_len: int, device: torch.device) -> tuple[torch.Tensor, ..
         torch.from_numpy(np.asarray(t[k], np.int64).copy()).to(device)
         for k in ("g_packed", "init_lut", "final_xor")
     )
+
+
+class CrcEngine:
+    """Batched reflected CRC-32 over ragged byte rows ``[B, max_len]``
+    (the JAX ``CrcEngine``): rows are left-aligned, ``lengths`` gives each
+    row's valid byte count, ``max_len`` is a static bound. The sum over set
+    bits is the exact integer XOR of :func:`crc32_compute`, not a float
+    matmul."""
+
+    def __init__(self, max_len: int):
+        self.max_len = int(max_len)
+        _tables(self.max_len)  # built once, here
+
+    def compute(self, data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """CRC-32 of each row. ``data`` uint8 ``[B, max_len]``,
+        ``lengths`` ``[B]`` in ``[0, max_len]``, on one device. Returns
+        int64 ``[B]`` (values below 2**32)."""
+        if data.ndim != 2 or data.shape[1] != self.max_len:
+            raise ValueError(f"expected [B, {self.max_len}] rows, got {tuple(data.shape)}")
+        return crc32_compute(
+            data, lengths.to(torch.int64), *_device_tables(self.max_len, data.device)
+        )
+
+
+@lru_cache(maxsize=8)
+def make_crc32_engine(max_len: int) -> CrcEngine:
+    return CrcEngine(max_len)
 
 
 def _body_crc(data: torch.Tensor, skip: int, body_len: torch.Tensor, max_len: int) -> torch.Tensor:

@@ -44,6 +44,9 @@ import gr4_packet_modem_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+from gr4_packet_modem_tpu_torch.examples import EXAMPLES
+missing = sorted(set(EXAMPLES) - {n.rsplit(".", 1)[-1] for n in names if ".examples." in n})
+assert len(EXAMPLES) == 19 and not missing, missing
 import chip_smoke
 samples, expected, starts = chip_smoke.bench_signal(1 << 15, 2)
 assert samples.shape == (2, 1 << 15) and samples.dtype.name == "complex64"
@@ -55,8 +58,9 @@ print("standalone", len(names))
 
 
 def test_port_imports_nothing_of_the_jax_package():
-    """(a) Every module of the port, and chip_smoke with its stimulus, in an
-    interpreter that refuses the JAX package and JAX."""
+    """(a) Every module of the port (the 19 examples' among them), and
+    chip_smoke with its stimulus, in an interpreter that refuses the JAX
+    package and JAX."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED], cwd=ROOT, env=env,
