@@ -93,7 +93,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    flags equal to their CPU runs'); K1 and K2b launched by
    ``syncword_detection``, K5 by the header examples, all six by every
    other receiving example. One line an example: its wall time, outcome
-   and launches.
+   and launches;
+13. benchmarks: every measurement program of the port
+   (``gr4_packet_modem_tpu_torch.bench`` and ``.benchmarks.benchmark_*``)
+   through its ``run(device="cuda")`` at its own defaults: ``bench`` (64 x
+   2**19, group 16, 20 iterations, int8 wire, an 8-channel bank, the
+   sharded bank on an NCCL world of one it starts) with
+   ``decoded_packet_frac`` 1.0 and its three parity gates holding at
+   non-zero rates; the receiver program (4 bins, 8 channels, 2**18) with
+   ``decoded_frac`` 1.0; syncword detection at 4 bins and 2**18 with fft
+   (K2, K2b) and fused (K1 too) acquisition and no decode kernel; the
+   transceiver program at 24/24; the TX program in burst and stream mode
+   (64 packets), one call's samples within 1e-5 of the CPU's; bank scaling
+   (8 channels a card, 2**17) at one card, efficiency 1. All six kernels
+   launched by each receiving program; each program's JSON line printed.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; each path of the receiver must have launched every kernel.
@@ -1681,6 +1694,91 @@ def examples_phase(torch, card: str, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- benchmarks
+
+BENCH_GATES = {  # bench's parity flags and the rates they gate
+    "sustained_parity_ok": "sustained_stream_sps",
+    "bank_sustained_parity_ok": "bank_sustained_sps",
+    "sharded_parity_ok": "sharded_bank_sustained_sps",
+}
+ACQUIRE_KERNELS = {"fft": ("fetch", "fetch_rows"), "fused": ("correlate", "fetch", "fetch_rows")}
+
+
+def benchmarks_phase(torch, card: str, dev) -> dict:
+    """Every measurement program of the port at its own defaults, each in
+    this process with the launch counts set to 0 before it and read after
+    (``bench`` and ``benchmark_bank_scaling`` start and destroy their own
+    NCCL world of one): ``bench`` (64 x 2**19, group 16, 20 iterations,
+    the int8 wire, an 8-channel bank and sharded bank) with its three
+    parity gates; ``benchmark_packet_receiver`` (4 bins, 8 channels,
+    2**18); ``benchmark_syncword_detection`` (4 bins, 2**18) with fft and
+    with fused acquisition; ``benchmark_packet_transceiver`` (4 bins, 24
+    packets); ``benchmark_packet_transmitter_pdu`` burst and stream (64
+    packets), one call's samples held within 1e-5 of the same call on CPU
+    tensors; ``benchmark_bank_scaling`` (8 channels a card, 2**17). Each
+    program's JSON line is printed as it printed it."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from gr4_packet_modem_tpu_torch.benchmarks.benchmark_packet_transmitter_pdu import tx_step
+
+    check(not dist.is_initialized(), "benchmarks: a process group is still initialised")
+    saved = {k: os.environ.pop(k) for k in list(os.environ) if k.startswith("BENCH_")}
+    out = {}
+
+    def program(label: str, module: str, argv: list[str], need) -> dict:
+        mod = importlib.import_module(f"gr4_packet_modem_tpu_torch.{module}")
+        t0 = time.perf_counter()
+        rec, launches = path_launches(torch, label, lambda: mod.run(argv, device=str(dev), echo=False),
+                                      need, show=False)
+        seconds = time.perf_counter() - t0
+        for line in rec.get("records", [rec]):
+            log(f"  {json.dumps(line)}")
+        log(f"  {label}: {seconds:.1f} s with its set-up; launches {launches}")
+        out[label] = {"record": rec, "launches": launches, "seconds": seconds}
+        return rec
+
+    try:
+        rec = program("bench", "bench", [], ALL_KERNELS)
+        check(rec["decoded_packet_frac"] == 1.0, f"bench: decoded_packet_frac {rec['decoded_packet_frac']}")
+        for gate, rate in BENCH_GATES.items():
+            check(rec[gate] is True and rec[rate] > 0, f"bench: {gate} {rec[gate]}, {rate} {rec[rate]}")
+        check(rec["value"] > 0 and rec["sharded_mesh"] == [1, 1], f"bench: {rec}")
+
+        rec = program("packet_receiver", "benchmarks.benchmark_packet_receiver", [], ALL_KERNELS)
+        check(rec["decoded_frac"] == 1.0, f"packet_receiver: decoded_frac {rec['decoded_frac']}")
+
+        for backend, need in ACQUIRE_KERNELS.items():
+            label = f"syncword_detection_{backend}"
+            program(label, "benchmarks.benchmark_syncword_detection", ["4", backend], need)
+            others = {k: n for k, n in out[label]["launches"].items() if n and k not in need}
+            check(not others, f"{label}: launched {others} beside acquisition's kernels")
+
+        rec = program("packet_transceiver", "benchmarks.benchmark_packet_transceiver", [], ALL_KERNELS)
+        check(rec["decoded"] == rec["expected"] == 24, f"packet_transceiver: {rec['decoded']} of {rec['expected']}")
+
+        for mode in ("burst", "stream"):
+            program(f"tx_{mode}", "benchmarks.benchmark_packet_transmitter_pdu", [mode], ())
+            fn, packets, n = tx_step(mode, 64, dev)
+            cfn, cpackets, _ = tx_step(mode, 64, "cpu")
+            (samples, lens), (want, want_lens) = fn(packets), cfn(cpackets)
+            err = (samples.cpu() - want).abs().max().item()
+            check(torch.equal(lens.cpu(), want_lens) and err <= 1e-5,
+                  f"tx_{mode}: samples {err:.3e} from the CPU's, or lengths differ")
+            out[f"tx_{mode}"].update(max_abs_err=err, samples_per_call=n)
+            log(f"  tx_{mode}: one call's {n} samples within {err:.3e} of the CPU's")
+
+        rec = program("bank_scaling", "benchmarks.benchmark_bank_scaling", [], ALL_KERNELS)
+        got = [(r["devices"], r["efficiency"]) for r in rec["records"]]
+        check(got == [(1, 1.0)], f"bank_scaling: records {got}")
+    finally:
+        os.environ.update(saved)
+    check(not dist.is_initialized(), "benchmarks: a program left its process group")
+    log(f"  benchmarks: every program passed its gates  [{card}]")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "gr4_packet_modem_tpu_torch")):
         raise SystemExit("chip_smoke: gr4_packet_modem_tpu_torch/ is missing: run it from a checkout of the repo")
@@ -1750,6 +1848,10 @@ def main() -> int:
     # phase 12: the examples
     log("examples:")
     exres = examples_phase(torch, card, dev)
+
+    # phase 13: the measurement programs
+    log("benchmarks:")
+    benchres = benchmarks_phase(torch, card, dev)
     import gr4_packet_modem_tpu_torch.io.zmq_pub  # noqa: F401  (the taps' publisher, no pyzmq here)
 
     check("jax" not in sys.modules, "jax was imported")
@@ -1770,6 +1872,7 @@ def main() -> int:
                    "launch_floor_ms": kres["launch_floor_ms"], "slice": sres,
                    "streaming": stres, "taps": tapres, "tx": txres, "transceiver": trxres,
                    "per": perres, "sharded": shres, "apps": appres, "examples": exres,
+                   "benchmarks": benchres,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
