@@ -106,7 +106,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    transceiver program at 24/24; the TX program in burst and stream mode
    (64 packets), one call's samples within 1e-5 of the CPU's; bank scaling
    (8 channels a card, 2**17) at one card, efficiency 1. All six kernels
-   launched by each receiving program; each program's JSON line printed.
+   launched by each receiving program; each program's JSON line printed;
+14. envelope: the u16 payload envelope of tests/test_large_payload.py
+   (16,384 + 5,000 bytes at 4 bins, 65,535 bytes at 1 bin) with both
+   payload carriers through the port's transmitter on the card, ``rotate``,
+   numpy noise and ``Receiver.receive``: every payload byte-exact, all six
+   kernels launched, K2 and K3 on 33 or 129 payload chunks; the receive
+   time (median of 3), its peak device memory and each kernel's device time
+   in the acquisition and the payload pass; the V&V cases and 16 KiB Costas
+   equal to the port's CPU run on the same samples. K4 at [2, 262,156]
+   bit for bit against two launches chained through its loop state and,
+   on its first 4,096 symbols, against the plain loop, timed beside its
+   chain floor; the 65,535-byte TX within 1e-5 of the CPU; the symbol
+   timing sweep of tests/test_symbol_timing.py (nine delays across +-0.5
+   sample, and -0.45 with a CFO of 0.006) held to the JAX test's bounds.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; each path of the receiver must have launched every kernel.
@@ -289,6 +302,10 @@ def timed(torch, fn, reps: int = 10, flush: bool = True) -> dict:
     return {"ms": pooled_call_ms(sessions, reps), "loop_ms": loop, "host_ms": host}
 
 
+class ProfilerDropped(AssertionError):
+    """Every profiler session kept fewer than half of each kernel's calls."""
+
+
 def pooled_call_ms(sessions: list, reps: int) -> float:
     """A call's device ms from profiler sessions of ``reps`` calls each of
     which dropped records: for each kernel name, the mean time of its
@@ -303,9 +320,9 @@ def pooled_call_ms(sessions: list, reps: int) -> float:
         for name, n in seen.items():
             most[name] = max(most.get(name, 0), n)
     per_call = {name: round(n / reps) for name, n in most.items()}
-    check(any(per_call.values()),
-          f"the profiler kept fewer than half of each kernel's {reps} calls in {len(sessions)} sessions "
-          f"({sum(map(len, sessions))} records)")
+    if not any(per_call.values()):
+        raise ProfilerDropped(f"the profiler kept fewer than half of each kernel's {reps} calls in "
+                              f"{len(sessions)} sessions ({sum(map(len, sessions))} records)")
     log(f"  (profiler: every session dropped records; {', '.join(f'{k} x{v}' for k, v in per_call.items())}"
         f" a call, each at the mean of {sum(map(len, sessions))} records)")
     return sum(statistics.fmean(durations[name]) * k for name, k in per_call.items()) / 1e3
@@ -1779,6 +1796,395 @@ def benchmarks_phase(torch, card: str, dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------- envelope
+
+# tests/test_large_payload.py's configurations: the u16 payload envelope
+# (packet_ingress.hpp:104, at most 65,535 bytes)
+ENVELOPE_CASES = {
+    "u16_16k": dict(lengths=(16384, 5000), seed=7, max_len=16384, detections=4, bins=4,
+                    cfo=0.002, noise=0.05),
+    "u16_max": dict(lengths=(65535,), seed=11, max_len=65535, detections=2, bins=1,
+                    cfo=0.001, noise=0.02),
+}
+KERNEL_SYMBOLS = {  # each kernel's __global__ function in csrc/
+    "fetch": "fetch_regions_kernel", "fetch_rows": "fetch_rows_kernel",
+    "matched": "matched_filter_kernel", "costas": "costas_kernel", "ldpc": "ldpc_kernel",
+    "correlate": "correlate_kernel",
+}
+TIMING_DELAYS = (-0.499, -0.45, -0.25, -0.05, 0.0, 0.05, 0.26, 0.45, 0.499)
+
+
+def envelope_signal(dev, case: dict):
+    """The port's transmitter on ``dev`` in burst mode, ``rotate`` by the
+    case's CFO, then complex Gaussian noise from numpy (seed + 100).
+    Returns (payloads, samples as numpy complex64)."""
+    from gr4_packet_modem_tpu_torch.models.channel import rotate
+    from gr4_packet_modem_tpu_torch.models.transmitter import Transmitter, TxConfig
+    from gr4_packet_modem_tpu_torch.utils.ragged import PacketBatch, ragged_concat
+
+    rng = np.random.default_rng(case["seed"])
+    payloads = [rng.integers(0, 256, n, dtype=np.uint8) for n in case["lengths"]]
+    tx = Transmitter(TxConfig(max_payload_len=case["max_len"]), dev)
+    s, n = tx.modulate_bursts(PacketBatch.from_list(payloads, case["max_len"], dev))
+    x = rotate(ragged_concat(s, n, int(n.sum()))[0], case["cfo"]).cpu().numpy()
+    rng = np.random.default_rng(case["seed"] + 100)
+    x = x + case["noise"] * (rng.standard_normal(x.size) + 1j * rng.standard_normal(x.size))
+    return payloads, x.astype(np.complex64)
+
+
+def kernel_split(torch, fn, launches: dict, reps: int = 3) -> dict:
+    """Device ms a call of ``fn`` for each kernel it launches: the mean of
+    the kernel's torch.profiler records over ``reps`` calls (after a
+    warm-up) times its launches a call (``launches``, one call's counts),
+    with the records kept. The profiler now and then drops records (see
+    ``timed``): up to four sessions run until each kernel has one; a kernel
+    still without one gets ``ms`` None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    want = {k: n for k, n in launches.items() if n}
+    us = {k: [] for k in want}
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            for k in want:
+                if e.device_type == cuda and KERNEL_SYMBOLS[k] in e.name:
+                    us[k].append(e.time_range.elapsed_us())
+        if all(us.values()):
+            break
+    missing = [k for k, v in us.items() if not v]
+    if missing:
+        log(f"  (profiler: no record of {missing} in four sessions)")
+    return {k: {"ms": statistics.fmean(us[k]) * n / 1e3 if us[k] else None, "launches": n,
+                "records": len(us[k])} for k, n in want.items()}
+
+
+def envelope_work(rx, xp) -> list:
+    """(part, kernel, (bytes, operations) a launch) of K1 in the
+    acquisition of the padded capture ``xp`` and of K2, K3 and K4 in the
+    payload pass, counted as ``_kernel_checks`` counts them."""
+    cfg, a = rx.config, rx.acquirer
+    d, kt, sps = cfg.max_detections, rx.arm_len, cfg.samples_per_symbol
+    n, s, nb = a.config.fft_size, a.stride, a.num_bins
+    fpad = a._frames_planes(xp.view(1, -1))[0].shape[0]
+    syms = cfg.max_payload_syms
+    chunk = rx._extraction_chunks(syms)[0]
+    r = sps * (chunk - 1) + kt
+    work = [
+        ("acquire", "correlate", (2 * (fpad + 1) * s * 4 + nb * n * 8 + fpad * n * 8,
+                                  fpad * ((1 + nb) * (4 * n * np.log2(n) - 6 * n + 8) + nb * n * 10))),
+        ("payloads", "fetch", (2 * (2 * d * r * 4) + d * 8, 0)),
+        ("payloads", "matched", (2 * d * r * 4 + d * kt * 4 + 2 * d * chunk * 4, 2 * 2 * d * chunk * kt)),
+    ]
+    if cfg.payload_carrier == "costas":
+        work.append(("payloads", "costas", (2 * d * syms * 8 + 4 * d * 4, d * syms * (15 + 40))))
+    return work
+
+
+def timed_or_events(torch, fn, reps: int = 10) -> dict:
+    """``timed``'s numbers (``timer`` "profiler"), or where every profiler
+    session dropped too many records, CUDA events around ``reps``
+    back-to-back calls, which for a small kernel is the host's time to
+    issue one (``timer`` "events")."""
+    try:
+        return {**timed(torch, fn, reps), "timer": "profiler"}
+    except ProfilerDropped as e:
+        ms, host = loop_ms(torch, fn, reps)
+        log(f"  ({e}: CUDA events around {reps} calls instead)")
+        return {"ms": ms, "loop_ms": ms, "host_ms": host, "timer": "events"}
+
+
+def envelope_kernel_rows(torch, card: str, rx, xp) -> list:
+    """K1, K2 and K3 alone at the shapes of ``rx``'s receive of the padded
+    capture ``xp`` (K1 on its frames, K2 and K3 at one payload chunk on
+    random data), each against its plain version (K2 bit for bit) and timed
+    with it and its library call as phase 3 times them, the conv1d
+    yardstick with TF32 off."""
+    import torch.nn.functional as F
+
+    from gr4_packet_modem_tpu_torch.ops.acquire_cuda import fused_best_power, fused_best_power_plain
+    from gr4_packet_modem_tpu_torch.ops.fetch_cuda import fetch_regions, fetch_regions_plain
+    from gr4_packet_modem_tpu_torch.ops.matched_cuda import matched_filter, matched_filter_plain
+
+    cfg, a, dev = rx.config, rx.acquirer, xp.device
+    gen = torch.Generator(device=dev).manual_seed(cfg.max_payload_len)
+    work = {k: w for _, k, w in envelope_work(rx, xp)}
+    rows = []
+
+    def row(name, shape, err, fn, plain, lib):
+        k = timed_or_events(torch, fn)
+        pms = timed_or_events(torch, plain, reps=3)["ms"]
+        lms = timed_or_events(torch, lib)["ms"] if lib else None
+        bms, by = bound(*work[name])
+        rows.append({"name": name, "shape": shape, "max_abs_err": err, **k, "plain_ms": pms,
+                     "library_ms": lms, "bound_ms": bms, "bound_by": by})
+        libs = f"{lms:.4f} ms" if lms is not None else "none"
+        log(f"  {name:10s} {shape:34s} max_abs_err={err:.3e} kernel={k['ms']:.4f} ms ({k['timer']}, host "
+            f"{k['host_ms']:.4f} ms/call) plain={pms:.4f} ms library={libs} bound={bms:.3e} ms "
+            f"({by}, {100 * bms / k['ms']:.1f} % of it)  [{card}]")
+
+    # K1 on the capture's frames
+    n, s = a.config.fft_size, a.stride
+    ar, ai, br, bi, nf, rows_c = a._frames_planes(xp.view(1, -1))
+    args = (ar, ai, br, bi, a.replica_fft_r, a.replica_fft_i, n)
+    kp, kb = (v.view(rows_c, n)[:nf, :s] for v in fused_best_power(*args, table=a.replica_table))
+    pp, pb = (v.view(rows_c, n)[:nf, :s] for v in fused_best_power_plain(*args))
+    check(torch.allclose(kp, pp, rtol=1e-4, atol=1e-5 * pp.max().item()),
+          "correlate: best_pow beyond rtol 1e-4, atol 1e-5 x max")
+    agree = (kb == pb).float().mean().item()
+    check(agree >= 0.999, f"correlate: best_bin equal on {agree:.6f} < 0.999")
+    row("correlate", f"FPAD={ar.shape[0]} S={s} N={n} nb={a.num_bins}", (kp - pp).abs().max().item(),
+        lambda: fused_best_power(*args, table=a.replica_table), lambda: fused_best_power_plain(*args), None)
+    del kp, kb, pp, pb
+
+    # K2 and K3 at one payload chunk
+    d, kt, sps = cfg.max_detections, rx.arm_len, cfg.samples_per_symbol
+    chunk = rx._extraction_chunks(cfg.max_payload_syms)[0]
+    r, t = sps * (chunk - 1) + kt, xp.numel()
+    starts = torch.randint(0, t - r + 1, (d,), generator=gen, device=dev)
+    starts[0] = t - r
+    kr, ki = fetch_regions(xp, starts, r)
+    pr, pi = fetch_regions_plain(xp, starts, r)
+    check(torch.equal(kr, pr) and torch.equal(ki, pi), f"fetch R={r}: not bit-exact")
+    row("fetch", f"D={d} R={r}", 0.0, lambda: fetch_regions(xp, starts, r),
+        lambda: fetch_regions_plain(xp, starts, r), lambda: torch.view_as_real(xp).unfold(0, r, 1)[starts])
+    zr, zi = (torch.randn(d, r, generator=gen, device=dev) for _ in range(2))
+    taps = torch.randn(d, kt, generator=gen, device=dev)
+
+    def conv():
+        w = taps.view(d, 1, kt)
+        return (F.conv1d(zr.view(1, d, r), w, stride=sps, groups=d),
+                F.conv1d(zi.view(1, d, r), w, stride=sps, groups=d))
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        (kr, ki), (pr, pi) = (f(zr, zi, taps, sps, chunk) for f in (matched_filter, matched_filter_plain))
+        cr, ci = conv()
+        for u, v in ((kr, pr), (ki, pi), (cr[0], pr), (ci[0], pi)):
+            check(torch.allclose(u, v, rtol=1e-5, atol=1e-4), f"matched S={chunk}: beyond rtol 1e-5 atol 1e-4")
+        row("matched", f"D={d} S={chunk} R={r}", max((kr - pr).abs().max().item(), (ki - pi).abs().max().item()),
+            lambda: matched_filter(zr, zi, taps, sps, chunk),
+            lambda: matched_filter_plain(zr, zi, taps, sps, chunk), conv)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    _flush.clear()  # so the next receive's peak device memory leaves it out
+    return rows
+
+
+def envelope_phase(torch, card: str, dev, probes: dict) -> dict:
+    """The u16 payload envelope through ``Transmitter.modulate_bursts``,
+    ``rotate``, numpy noise and ``Receiver.receive`` on the card, both
+    carriers; K4 at the full payload length; the 65,535-byte TX against
+    the CPU; the symbol-timing sweep at the +-0.5-sample boundary."""
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver, RxConfig
+    from gr4_packet_modem_tpu_torch.models.transmitter import Transmitter, TxConfig
+    from gr4_packet_modem_tpu_torch.ops.costas_cuda import costas_track, costas_track_plain
+    from gr4_packet_modem_tpu_torch.utils.ragged import PacketBatch
+    from gr4_packet_modem_tpu_torch.utils.stimulus import costas_symbols
+
+    out = {"cases": {}}
+    for name, case in ENVELOPE_CASES.items():
+        payloads, xn = envelope_signal(dev, case)
+        xd = torch.from_numpy(xn).to(dev)
+        for carrier in ("vv", "costas"):
+            label = f"{name} {carrier}"
+            cfg = RxConfig(max_payload_len=case["max_len"], max_detections=case["detections"],
+                           freq_bins=case["bins"], payload_carrier=carrier, acquisition_backend="fused")
+            rx = Receiver(cfg, dev)
+            rx.receive(xd).accepted.sum().item()  # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            res, launches = path_launches(torch, label, lambda: rx.receive(xd), ALL_KERNELS, show=False)
+            peak = torch.cuda.max_memory_allocated()
+            check_all(decoded(res), payloads, label)
+            for p, n in zip(payloads, res.lengths[res.accepted].tolist()):
+                check(n == p.size, f"{label}: length {n}, not {p.size}")
+            chunks = rx._extraction_chunks(cfg.max_payload_syms)[1]
+            check(launches["matched"] == 1 + chunks and launches["fetch"] == 2 + chunks,
+                  f"{label}: K2 {launches['fetch']} and K3 {launches['matched']} launches, not "
+                  f"{2 + chunks} and {1 + chunks} ({chunks} payload chunks)")
+            check(launches["costas"] == (2 if carrier == "costas" else 1),
+                  f"{label}: K4 launched {launches['costas']} times")
+            ms = median_ms(torch, lambda: rx.receive(xd).accepted.sum().item(), reps=3)
+            busy, ops = busy_ms(torch, lambda: rx.receive(xd), reps=3)
+            # device time a call of each kernel: the acquisition (K1, K2,
+            # K2b), then the payload pass alone (K2 and K3 on every chunk, K4
+            # in costas)
+            xp = rx.pad(xd)
+            det = rx.acquirer.acquire(xp)
+            hdr, _ = rx.decode_headers(xp, det)
+            keep = rx.filter_detections(det, hdr)
+            _, acq_l = path_launches(torch, "acquire", lambda: rx.acquirer.acquire(xp), show=False)
+            _, pay_l = path_launches(torch, "payloads", lambda: rx.decode_payloads(xp, det, hdr, keep),
+                                     show=False)
+            split = {"acquire": kernel_split(torch, lambda: rx.acquirer.acquire(xp), acq_l),
+                     "payloads": kernel_split(torch, lambda: rx.decode_payloads(xp, det, hdr, keep), pay_l)}
+            for part, k, (nbytes, nops) in envelope_work(rx, xp):
+                row = split[part][k]
+                row["bound_ms"], row["bound_by"] = bound(nbytes * row["launches"], nops * row["launches"])
+            rows = {"valid": int(det.valid.sum()), "header_ok": int(hdr.header_ok.sum()),
+                    "kept": int(keep.sum())}
+            rec = {"receive_ms": ms, "busy_ms": busy, "device_ops": ops, "peak_bytes": peak,
+                   "launches": launches, "payload_chunks": chunks, "samples": xn.size,
+                   "padded": xp.shape[-1], "detections": case["detections"], "rows": rows,
+                   "kernel_ms": split}
+            log(f"  {label}: {len(payloads)} packets of {list(case['lengths'])} B decoded byte-exact; "
+                f"receive {ms:.2f} ms (median of 3), device busy {busy:.2f} ms in {ops:.0f} operations, "
+                f"peak device memory {peak / 2**20:.1f} MiB, {xn.size} samples; of "
+                f"{case['detections']} slots {rows['valid']} valid, {rows['header_ok']} headers, "
+                f"{rows['kept']} kept; launches {launches}; K2/K3 chunk launches {chunks}  [{card}]")
+            log(f"  {label}: device ms a call (bound ms beside): " + "; ".join(
+                f"{part} " + ", ".join(
+                    f"{k} {v['ms'] if v['ms'] is None else round(v['ms'], 4)} x{v['launches']}"
+                    + (f" ({v['bound_ms']:.4f}, {v['bound_by']})" if "bound_ms" in v else "")
+                    for k, v in split[part].items())
+                for part in ("acquire", "payloads")) + f"  [{card}]")
+            # the card against the port's own CPU run on the same samples;
+            # the 65,535-byte Costas case against the payload only (the
+            # plain Costas loop's 262,156 steps are slow on the CPU)
+            if not (name == "u16_max" and carrier == "costas"):
+                t0 = time.perf_counter()
+                want = Receiver(cfg, "cpu").receive(xn)
+                rec["cpu_s"] = time.perf_counter() - t0
+                acc = res.accepted.cpu()
+                check(torch.equal(acc, want.accepted), f"{label}: accepted differs from the CPU's")
+                for f in ("lengths", "data"):
+                    check(torch.equal(getattr(res, f).cpu()[acc], getattr(want, f)[acc]),
+                          f"{label}: {f} differ from the CPU's")
+                log(f"  {label}: accepted, lengths and bytes equal to the CPU run's "
+                    f"({rec['cpu_s']:.1f} s on the CPU)")
+            if name == "u16_max" and carrier == "vv":
+                out["kernel_rows"] = envelope_kernel_rows(torch, card, rx, xp)
+            out["cases"][label] = rec
+            del rx, res, xp, det, hdr, keep
+
+    # K4 at the full 65,535-byte payload: one launch against two chained
+    # through the loop state at a split off the 32-symbol tiles, and its
+    # first 4,096 symbols against the plain loop, both bit for bit
+    b, s, offset, cut = 2, 4 * (65535 + 4), 192, 100_003
+    sym, ph0, fr0 = (torch.from_numpy(a).to(dev) for a in costas_symbols(b, s, offset, seed=65535))
+    ko, kph, kfr = costas_track(sym, ph0, fr0, offset=offset)
+    o1, p1, f1 = costas_track(sym[:, :cut].contiguous(), ph0, fr0, offset=offset)
+    o2, p2, f2 = costas_track(sym[:, cut:].contiguous(), p1, f1, offset=offset + cut)
+    check(torch.equal(ko, torch.cat([o1, o2], dim=1)) and torch.equal(kph, p2) and torch.equal(kfr, f2),
+          f"costas S={s}: one launch differs from two chained at {cut}")
+    head = 4096
+    po, pph, pfr = costas_track_plain(sym[:, :head].contiguous(), ph0, fr0, offset=offset)
+    ho, hph, hfr = costas_track(sym[:, :head].contiguous(), ph0, fr0, offset=offset)
+    check(torch.equal(ko[:, :head], po) and torch.equal(ho, po) and torch.equal(hph, pph)
+          and torch.equal(hfr, pfr), f"costas S={s}: the first {head} symbols differ from the plain loop")
+    check(bool(torch.isfinite(torch.view_as_real(ko)).all()) and bool(torch.isfinite(kph).all()),
+          f"costas S={s}: non-finite output")
+    # CUDA events around back-to-back calls: at 0.5-40 ms a call the host's
+    # time to issue one is small beside the kernel's (torch.profiler drops
+    # most records of these long kernels)
+    k4, k4_host = loop_ms(torch, lambda: costas_track(sym, ph0, fr0, offset=offset), reps=5)
+    head_sym = sym[:, :head].contiguous()
+    head_ms, _ = loop_ms(torch, lambda: costas_track(head_sym, ph0, fr0, offset=offset))
+    plain_head_ms = event_ms(torch, lambda: costas_track_plain(head_sym, ph0, fr0, offset=offset), reps=1)
+    floor = chain_floor(torch, probes["chain"], "pm_costas_chain", s, offset)
+    bms, by = bound(2 * b * s * 8 + 4 * b * 4, b * s * (15 + 40))
+    out["costas_full"] = {"shape": f"B={b} S={s} offset={offset}", "ms": k4, "host_ms": k4_host,
+                          "chain_floor_ms": floor["ms"], "chain_cycles": floor["cycles"],
+                          "sm_mhz": floor["sm_mhz"], "bound_ms": bms, "bound_by": by,
+                          "chained_split": cut, "plain_symbols": head, "head_ms": head_ms,
+                          "plain_head_ms": plain_head_ms}
+    log(f"  costas B={b} S={s} offset={offset}: one launch equal bit for bit to two chained at {cut}; "
+        f"the first {head} symbols equal to the plain loop; {k4:.4f} ms (CUDA events, 5 calls) "
+        f"against its chain floor {floor['ms']:.4f} ms ({floor['cycles']} cycles at "
+        f"{floor['sm_mhz']:.0f} MHz, {100 * floor['ms'] / k4:.1f} % of it), bound {bms:.4f} ms "
+        f"({by}); on its first {head} symbols {head_ms:.4f} ms against the plain loop's "
+        f"{plain_head_ms:.4f} ms  [{card}]")
+    del sym, ko, o1, o2, po, ho, head_sym
+
+    # the transmitter at 65,535 bytes on the card against CPU tensors
+    pays = [np.random.default_rng(ENVELOPE_CASES["u16_max"]["seed"]).integers(0, 256, 65535, dtype=np.uint8)]
+    got, want = (Transmitter(TxConfig(max_payload_len=65535), d).modulate_bursts(
+        PacketBatch.from_list(pays, 65535, d)) for d in (dev, "cpu"))
+    err = (got[0].cpu() - want[0]).abs().max().item()
+    check(torch.equal(got[1].cpu(), want[1]) and err <= 1e-5,
+          f"tx 65535 B: samples {err:.3e} from the CPU's (> 1e-5), or lengths differ")
+    out["tx_u16_max"] = {"samples": int(want[1].sum()), "max_abs_err": err}
+    log(f"  tx 65535 B: {int(want[1].sum())} samples within {err:.3e} of the CPU's, lengths equal")
+
+    out["timing"] = timing_sweep(torch, card, dev)
+    return out
+
+
+def frac_delay(x: np.ndarray, d: float) -> np.ndarray:
+    """Delay ``x`` by ``d`` samples (a phase ramp in frequency: exact for
+    the RRC signal's < 0.25-Nyquist occupancy; tests/test_symbol_timing.py)."""
+    n = 1 << int(np.ceil(np.log2(x.size + 256)))
+    xp = np.zeros(n, np.complex128)
+    xp[: x.size] = x
+    f = np.fft.fftfreq(n)
+    y = np.fft.ifft(np.fft.fft(xp) * np.exp(-2j * np.pi * f * d))
+    return y[: x.size].astype(np.complex64)
+
+
+def timing_sweep(torch, card: str, dev) -> dict:
+    """tests/test_symbol_timing.py's sweep on the card: a clean 96-byte
+    burst delayed by nine fractions of a sample, and at -0.45 with a CFO
+    of 0.006, through ``acquire``, ``decode_headers``,
+    ``filter_detections`` and ``decode_payloads``, held to the JAX
+    test's bounds."""
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver, RxConfig
+    from gr4_packet_modem_tpu_torch.models.transmitter import Transmitter, TxConfig
+    from gr4_packet_modem_tpu_torch.ops import _build
+    from gr4_packet_modem_tpu_torch.utils import constants as C
+    from gr4_packet_modem_tpu_torch.utils.ragged import PacketBatch, ragged_concat
+
+    payload = (np.arange(96) % 256).astype(np.uint8)
+    s, n = Transmitter(TxConfig(max_payload_len=128), dev).modulate_bursts(
+        PacketBatch.from_list([payload], 128, dev))
+    stream = ragged_concat(s, n, int(n.sum()))[0].cpu().numpy()
+    clean = np.zeros(8192, np.complex64)
+    clean[500 : 500 + stream.size] = stream
+    rx = Receiver(RxConfig(max_payload_len=128, max_detections=4, freq_bins=1,
+                           acquisition_backend="fused"), dev)
+    _build.reset_launch_counts()
+    rows = []
+    for delay, cfo in [(d, 0.0) for d in TIMING_DELAYS] + [(-0.45, 0.006)]:
+        x = frac_delay(clean, delay)
+        x = (x * np.exp(1j * cfo * np.arange(x.size))).astype(np.complex64)
+        xp = rx.pad(torch.from_numpy(x).to(dev))
+        det = rx.acquirer.acquire(xp)
+        hdr, corrected = rx.decode_headers(xp, det)
+        keep = rx.filter_detections(det, hdr)
+        res = rx.decode_payloads(xp, det, hdr, keep)
+        te = float(det.time_est[0])
+        sync = corrected[0, : C.SYNCWORD_LEN].cpu().numpy()
+        label = f"timing delay {delay} cfo {cfo}"
+        check(bool(det.valid[0]) and bool(hdr.header_ok[0]), f"{label}: no detection or header")
+        check(bool(res.accepted[0]) and np.array_equal(res.data[0, : payload.size].cpu().numpy(), payload),
+              f"{label}: payload not accepted byte-exact")
+        if cfo == 0.0:
+            err = (te - delay + 0.5) % 1.0 - 0.5
+            evm = float(np.mean(np.abs(sync - 1.0) ** 2))
+            check(abs(err) < 0.06 and evm < 0.005, f"{label}: time error {err:.4f}, syncword EVM {evm:.5f}")
+            rows.append({"delay": delay, "time_est": te, "time_err": err, "sync_evm": evm})
+        else:
+            check(te < 0, f"{label}: time_est {te} not negative")
+            tail = float(np.mean(np.abs(sync[48:] - np.mean(sync[48:])) ** 2))
+            check(tail < 0.02, f"{label}: syncword tail EVM {tail:.5f}")
+            rows.append({"delay": delay, "cfo": cfo, "time_est": te, "tail_evm": tail})
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    for k in ALL_KERNELS:
+        check(launches[k] > 0, f"timing sweep: kernel {k} not launched")
+    sweep = [r for r in rows if "sync_evm" in r]
+    log(f"  timing: {len(sweep)} delays, |time error| <= {max(abs(r['time_err']) for r in sweep):.4f} "
+        f"(< 0.06), syncword EVM <= {max(r['sync_evm'] for r in sweep):.5f} (< 0.005); CFO 0.006 at "
+        f"-0.45: tail EVM {rows[-1]['tail_evm']:.5f} (< 0.02); every payload byte-exact; launches "
+        f"{launches}  [{card}]")
+    return {"rows": rows, "launches": launches}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "gr4_packet_modem_tpu_torch")):
         raise SystemExit("chip_smoke: gr4_packet_modem_tpu_torch/ is missing: run it from a checkout of the repo")
@@ -1852,6 +2258,13 @@ def main() -> int:
     # phase 13: the measurement programs
     log("benchmarks:")
     benchres = benchmarks_phase(torch, card, dev)
+
+    # phase 14: the u16 payload envelope and the timing boundary
+    log("envelope:")
+    t0 = time.perf_counter()
+    envres = envelope_phase(torch, card, dev, probes)
+    envres["seconds"] = time.perf_counter() - t0
+    log(f"  envelope: {envres['seconds']:.1f} s")
     import gr4_packet_modem_tpu_torch.io.zmq_pub  # noqa: F401  (the taps' publisher, no pyzmq here)
 
     check("jax" not in sys.modules, "jax was imported")
@@ -1872,7 +2285,7 @@ def main() -> int:
                    "launch_floor_ms": kres["launch_floor_ms"], "slice": sres,
                    "streaming": stres, "taps": tapres, "tx": txres, "transceiver": trxres,
                    "per": perres, "sharded": shres, "apps": appres, "examples": exres,
-                   "benchmarks": benchres,
+                   "benchmarks": benchres, "envelope": envres,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -286,6 +286,15 @@ class Receiver(nn.Module):
 
     # ------------------------------------------------------ symbol extraction
 
+    def _extraction_chunks(self, num_syms: int) -> tuple[int, int]:
+        """``(chunk, chunks)`` of an extraction of ``num_syms`` symbols: long
+        extractions run in ``symbol_chunk``-symbol chunks to bound the
+        ``[D, region]`` intermediates, each one K2 and one K3 launch."""
+        chunk = self.config.symbol_chunk
+        if num_syms > 4 * chunk:
+            return chunk, -(-num_syms // chunk)
+        return num_syms, 1
+
     def _extract_symbols(
         self,
         x: torch.Tensor,
@@ -309,12 +318,7 @@ class Receiver(nn.Module):
         sps = cfg.samples_per_symbol
         kk = self.arm_len
         taps = self.arm_taps[arm].flip(1).contiguous()  # [D, K] time-reversed
-        # long extractions are chunked to bound the [D, region] intermediates
-        if num_syms > 4 * cfg.symbol_chunk:
-            chunk = cfg.symbol_chunk
-            nchunks = -(-num_syms // chunk)
-        else:
-            chunk, nchunks = num_syms, 1
+        chunk, nchunks = self._extraction_chunks(num_syms)
         row_len = x.shape[-1]
         xf = x.reshape(-1)
         region_len = sps * (chunk - 1) + kk

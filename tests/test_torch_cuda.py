@@ -265,3 +265,37 @@ def test_transceiver_app_burst_loopback_on_card(dev):
     assert res["sent"] >= 4 and res["received"] == res["sent"] == len(res["sent_payloads"])
     assert all(np.array_equal(p.data, q) for p, q in zip(res["decoded"], res["sent_payloads"]))
     assert all(launches[k] > 0 for k in _build.KERNELS), launches
+
+
+def test_u16_max_costas_decodes_on_card(dev):
+    """tests/test_large_payload.py's 65,535-byte payload with the Costas
+    carrier on the card (its CPU plain loop is out of Tier-1's reach): the
+    port's transmitter, ``rotate`` by 0.001, noise of 0.02 a component
+    from numpy, ``Receiver.receive``; accepted byte-exact at its length,
+    K4 on the header and the 262,156-symbol payload, K2 and K3 on 129
+    payload chunks."""
+    from gr4_packet_modem_tpu_torch.models.channel import rotate
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver, RxConfig
+    from gr4_packet_modem_tpu_torch.models.transmitter import Transmitter, TxConfig
+    from gr4_packet_modem_tpu_torch.utils.ragged import PacketBatch, ragged_concat
+
+    max_len = 65535
+    payload = np.random.default_rng(11).integers(0, 256, max_len, dtype=np.uint8)
+    s, n = Transmitter(TxConfig(max_payload_len=max_len), dev).modulate_bursts(
+        PacketBatch.from_list([payload], max_len, dev))
+    x = rotate(ragged_concat(s, n, int(n.sum()))[0], 0.001).cpu().numpy()
+    rng = np.random.default_rng(111)
+    x = (x + 0.02 * (rng.standard_normal(x.size) + 1j * rng.standard_normal(x.size))).astype(np.complex64)
+    rx = Receiver(RxConfig(max_payload_len=max_len, max_detections=2, freq_bins=1,
+                           payload_carrier="costas"), dev)
+    _build.reset_launch_counts()
+    res = rx.receive(x)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    acc = res.accepted.cpu().numpy()
+    assert acc.sum() == 1
+    row = int(np.nonzero(acc)[0][0])
+    assert int(res.lengths[row]) == max_len
+    np.testing.assert_array_equal(res.data[row, :max_len].cpu().numpy(), payload)
+    assert launches["costas"] == 2 and launches["matched"] == 1 + 129, launches
+    assert all(launches[k] > 0 for k in _build.KERNELS), launches
