@@ -119,10 +119,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    on its first 4,096 symbols, against the plain loop, timed beside its
    chain floor; the 65,535-byte TX within 1e-5 of the CPU; the symbol
    timing sweep of tests/test_symbol_timing.py (nine delays across +-0.5
-   sample, and -0.45 with a CFO of 0.006) held to the JAX test's bounds.
+   sample, and -0.45 with a CFO of 0.006) held to the JAX test's bounds;
+15. backends: the acquisition backends ``fused_bf16``, ``conv`` and
+   ``conv_bf16``. K1's bf16 form (``csrc/correlate_bf16.cu``) against its
+   plain version at the bench shape and at N=4096 and 8192 on two
+   channels (every best power within 2e-2 of itself plus 1e-4 of the
+   largest; every best bin equal where the plain version's best bin leads
+   its second by more than 5 % and by more than 2e-4 of the largest),
+   timed in turns with the float32 K1, with its bound's three terms
+   (bytes, float32 operations, bf16 tensor-core operations at 989
+   TFLOP/s); ``bank_step`` of the bench bank at group 0 with each of the
+   three backends, every packet byte-exact and the fused backend's
+   detections, ``correlate_bf16`` launched on the ``fused_bf16`` path and
+   neither K1 on the conv paths; ``bench`` at the JAX records'
+   ``default_vv_bf16`` and ``ch64_g16_bf16`` configurations
+   (``decoded_packet_frac`` 1.0, the gates holding); the syncword program
+   at 4 bins with all five backends.
 
 Each path runs with the launch counts set to 0 just before it and read
-just after; each path of the receiver must have launched every kernel.
+just after; each path of the receiver with fused acquisition must have
+launched the six kernels of ``ALL_KERNELS``, and each ``fused_bf16`` path
+``correlate_bf16`` in K1's place.
 
 The stimulus is made in numpy by ``gr4_packet_modem_tpu_torch/utils/
 stimulus.py`` (the sequential per-packet transmitter of the tests, held bit
@@ -161,7 +178,12 @@ REPLACES = {
              "gr4_packet_modem_tpu/ops/ldpc_pallas.py:139"),
     "correlate": ("gr4_packet_modem_tpu_torch/csrc/correlate.cu",
                   "gr4_packet_modem_tpu/ops/acquire_pallas.py:375"),
+    "correlate_bf16": ("gr4_packet_modem_tpu_torch/csrc/correlate_bf16.cu",
+                       "gr4_packet_modem_tpu/ops/acquire_pallas.py:375"),
 }
+# the kernels a receive with fused acquisition launches (phases 4-14); K1's
+# bf16 form, correlate_bf16, runs on phase 15's fused_bf16 paths
+ALL_KERNELS = ("fetch", "fetch_rows", "matched", "costas", "ldpc", "correlate")
 
 
 def log(msg: str) -> None:
@@ -176,13 +198,22 @@ def check(cond: bool, msg: str) -> None:
 # the card's peaks for bound_ms (NVIDIA's H100 SXM data sheet, dense, 700 W)
 PEAK_BYTES_PER_S = 3.35e12  # HBM3
 PEAK_F32_PER_S = 67e12  # float32 outside the tensor cores
+PEAK_BF16_TC_PER_S = 989e12  # bf16 on the tensor cores
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """(least ms the card could take, "bytes" or "operations"): the larger
-    of ``nbytes`` over the memory rate and ``ops`` over the float32 rate."""
-    tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    to = ops / PEAK_F32_PER_S * 1e3
+def bound_terms(nbytes: float, ops: float, tc_ops: float = 0.0) -> dict:
+    """ms of each of ``bound``'s terms: ``bytes``, ``f32`` and ``bf16_tc``."""
+    return {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3, "f32": ops / PEAK_F32_PER_S * 1e3,
+            "bf16_tc": tc_ops / PEAK_BF16_TC_PER_S * 1e3}
+
+
+def bound(nbytes: float, ops: float, tc_ops: float = 0.0) -> tuple[float, str]:
+    """(least ms the card could take, "bytes" or "operations"): the largest
+    of ``nbytes`` over the memory rate, ``ops`` (float32) over the float32
+    rate and ``tc_ops`` (bf16 tensor-core operations) over the bf16
+    tensor-core rate."""
+    t = bound_terms(nbytes, ops, tc_ops)
+    tb, to = t["bytes"], max(t["f32"], t["bf16_tc"])
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -244,18 +275,32 @@ def busy_ms(torch, fn, reps: int = 5) -> tuple[float, float]:
     """(device busy ms, device operations) per call: torch.profiler's CUDA
     events (kernels and copies) of ``reps`` back-to-back calls after a
     warm-up, summed and divided by ``reps``; the L2 is left as the calls
-    leave it."""
+    leave it. The profiler now and then drops records, or a whole session's
+    (see ``timed``): up to four sessions run until one keeps a whole number
+    of calls' records; failing that, the session that kept the most counts,
+    and where none kept any, both numbers are NaN (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(bool(events), "the profiler saw no device work")
-    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps, len(events) / reps
+    cuda = torch.autograd.DeviceType.CUDA
+    best = []
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == cuda]
+        if len(events) > len(best):
+            best = events
+        if events and len(events) % reps == 0:
+            break
+    else:
+        if not best:
+            log("  (profiler: no record in four sessions; busy not measured)")
+            return float("nan"), float("nan")
+        log(f"  (profiler: no session of four kept whole calls; busy from the fullest, {len(best)} records)")
+    return sum(e.time_range.elapsed_us() for e in best) / 1e3 / reps, len(best) / reps
 
 
 def timed(torch, fn, reps: int = 10, flush: bool = True) -> dict:
@@ -265,9 +310,11 @@ def timed(torch, fn, reps: int = 10, flush: bool = True) -> dict:
     kernel is left out, divided by ``reps``, after a warm-up; with
     ``flush`` False the write is left out too, so each call finds in the
     L2 what the call before left there; where every session dropped
-    records, ``pooled_call_ms`` of them); ``loop_ms``,
-    CUDA events around ``reps`` back-to-back calls; ``host_ms``, the host's
-    time to issue one call in that loop."""
+    records, ``pooled_call_ms`` of them; where they kept too few for that,
+    ``loop_ms``, which for a small kernel is the host's time to issue one);
+    ``loop_ms``, CUDA events around ``reps`` back-to-back calls; ``host_ms``,
+    the host's time to issue one call in that loop; ``timer``, "profiler"
+    or "events", which of the two ``ms`` is."""
     from torch.profiler import ProfilerActivity, profile
 
     if not _flush:
@@ -297,20 +344,29 @@ def timed(torch, fn, reps: int = 10, flush: bool = True) -> dict:
               f"{flushes} flush kernels in {reps} calls: the timed call launches their kind")
         if calls and len(calls) % reps == 0:
             busy = sum(e.time_range.elapsed_us() for e in calls)
-            return {"ms": busy / 1e3 / reps, "loop_ms": loop, "host_ms": host}
+            return {"ms": busy / 1e3 / reps, "loop_ms": loop, "host_ms": host, "timer": "profiler"}
         sessions.append(calls)
-    return {"ms": pooled_call_ms(sessions, reps), "loop_ms": loop, "host_ms": host}
+    ms = pooled_call_ms(sessions, reps)
+    if ms is None:
+        log(f"  (profiler kept fewer than half of each kernel's {reps} calls in {len(sessions)} sessions, "
+            f"{sum(map(len, sessions))} records: CUDA events around {reps} calls instead)")
+        return {"ms": loop, "loop_ms": loop, "host_ms": host, "timer": "events"}
+    return {"ms": ms, "loop_ms": loop, "host_ms": host, "timer": "profiler"}
 
 
-class ProfilerDropped(AssertionError):
-    """Every profiler session kept fewer than half of each kernel's calls."""
+def mean_timed(a: dict, b: dict) -> dict:
+    """The mean of two ``timed`` results of one call, key by key; ``timer``
+    names both where they differ."""
+    timer = a["timer"] if a["timer"] == b["timer"] else f"{a['timer']}+{b['timer']}"
+    return {**{key: (a[key] + b[key]) / 2 for key in a if key != "timer"}, "timer": timer}
 
 
-def pooled_call_ms(sessions: list, reps: int) -> float:
+def pooled_call_ms(sessions: list, reps: int) -> float | None:
     """A call's device ms from profiler sessions of ``reps`` calls each of
     which dropped records: for each kernel name, the mean time of its
     records in all sessions times its launches a call (the most records a
-    session kept of it over ``reps``, rounded), summed over names."""
+    session kept of it over ``reps``, rounded), summed over names; None
+    where no session kept half of any kernel's calls."""
     durations, most = {}, {}
     for calls in sessions:
         seen = {}
@@ -321,8 +377,7 @@ def pooled_call_ms(sessions: list, reps: int) -> float:
             most[name] = max(most.get(name, 0), n)
     per_call = {name: round(n / reps) for name, n in most.items()}
     if not any(per_call.values()):
-        raise ProfilerDropped(f"the profiler kept fewer than half of each kernel's {reps} calls in "
-                              f"{len(sessions)} sessions ({sum(map(len, sessions))} records)")
+        return None
     log(f"  (profiler: every session dropped records; {', '.join(f'{k} x{v}' for k, v in per_call.items())}"
         f" a call, each at the mean of {sum(map(len, sessions))} records)")
     return sum(statistics.fmean(durations[name]) * k for name, k in per_call.items()) / 1e3
@@ -529,7 +584,7 @@ def _kernel_checks(torch, card: str, probes: dict) -> dict:
         w1 = timed(torch, one_wave)["ms"]
         w2 = timed(torch, one_wave)["ms"]
         k2 = timed(torch, lambda: fetch_regions(x, starts, r))
-        k = {key: (k1[key] + k2[key]) / 2 for key in k1}
+        k = mean_timed(k1, k2)
         pms = timed(torch, lambda: fetch_regions_plain(x, starts, r))["ms"]
         lib = timed(torch, lambda: torch.view_as_real(x).unfold(0, r, 1)[starts])["ms"]
         extra = {"parent_route_ms": timed(torch, parent_route)["ms"],
@@ -606,7 +661,7 @@ def _kernel_checks(torch, card: str, probes: dict) -> dict:
         p2 = timed(torch, lambda: fused_best_power_plain(*args), reps=3)["ms"]
         log(f"  correlate {label}: in turns kernel {k1['ms']:.4f}, plain {p1:.4f}, "
             f"kernel {k2['ms']:.4f}, plain {p2:.4f} ms")
-        k = {key: (k1[key] + k2[key]) / 2 for key in k1}
+        k = mean_timed(k1, k2)
         fpad, nb = ar.shape[0], a.num_bins
         nbytes = 2 * (fpad + 1) * s * 4 + nb * n * 8 + fpad * n * 8
         # a frame: one forward and nb inverse transforms at the split-radix
@@ -645,7 +700,7 @@ def _kernel_checks(torch, card: str, probes: dict) -> dict:
         l2 = timed(torch, conv)["ms"]
         log(f"  matched S={s}: in turns kernel {k1['ms']:.4f}, conv1d {l1:.4f}, "
             f"kernel {k2['ms']:.4f}, conv1d {l2:.4f} ms")
-        k = {key: (k1[key] + k2[key]) / 2 for key in k1}
+        k = mean_timed(k1, k2)
         pms = timed(torch, lambda: matched_filter_plain(zr, zi, taps, sps, s), reps=3)["ms"]
         record("matched", f"D={d} S={s} R={r}", err, k, pms, (l1 + l2) / 2,
                2 * d * r * 4 + d * kt * 4 + 2 * d * s * 4, 2 * 2 * d * s * kt, s == 6160)
@@ -825,11 +880,11 @@ def slice_run(torch, card: str) -> dict:
     log(f"  bank {tuple(x.shape)} complex64, {len(expected)} packets per channel inside the block")
 
     fused, fused_rows = bank_run(torch, card, rx, x, expected, "fused")
-    for k in _build.KERNELS:
+    for k in ALL_KERNELS:
         check(fused["launches"][k] > 0, f"kernel {k} was not launched by the main path")
     # channel groups of 16 (bank_step's default): four groups, one after another
     fused16, rows16 = bank_run(torch, card, rx, x, expected, "fused group 16", group=16)
-    for k in _build.KERNELS:
+    for k in ALL_KERNELS:
         check(fused16["launches"][k] > 0, f"kernel {k} was not launched by the group-16 step")
     same_rows(torch, rows16, fused_rows, "fused group 16 against group 0")
     del rows16
@@ -838,7 +893,7 @@ def slice_run(torch, card: str) -> dict:
     rx_fft = Receiver(dataclasses.replace(BENCH_CONFIG, acquisition_backend="fft"), dev)
     fft, fft_rows = bank_run(torch, card, rx_fft, x, expected, "fft")
     check(fft["launches"]["correlate"] == 0, "the fft path launched the fused correlator")
-    for k in _build.KERNELS:
+    for k in ALL_KERNELS:
         check(k == "correlate" or fft["launches"][k] > 0, f"kernel {k} was not launched by the fft path")
     a, b = fused_rows[0], fft_rows[0]
     v = b.valid
@@ -855,7 +910,7 @@ def slice_run(torch, card: str) -> dict:
     costas, costas_rows = bank_run(torch, card, rx_costas, x, expected, "costas")
     check(costas["launches"]["costas"] == 2,
           f"costas carrier: K4 launched {costas['launches']['costas']} times in one step, not 2")
-    for k in _build.KERNELS:
+    for k in ALL_KERNELS:
         check(costas["launches"][k] > 0, f"kernel {k} was not launched by the Costas carrier's step")
     log(f"  costas carrier against V&V: +payload {costas['stages_ms']['+payload']:.2f} against "
         f"{fused['stages_ms']['+payload']:.2f} ms, rate {costas['rate_sps']:.4e} against "
@@ -863,7 +918,7 @@ def slice_run(torch, card: str) -> dict:
     costas16, rows16 = bank_run(torch, card, rx_costas, x, expected, "costas group 16", group=16)
     check(costas16["launches"]["costas"] == 8,
           f"costas group 16: K4 launched {costas16['launches']['costas']} times, not 2 a group")
-    for k in _build.KERNELS:
+    for k in ALL_KERNELS:
         check(costas16["launches"][k] > 0, f"kernel {k} was not launched by the Costas group-16 step")
     same_rows(torch, rows16, costas_rows, "costas group 16 against group 0")
     for name, g16, g0 in (("V&V", fused16, fused), ("costas", costas16, costas)):
@@ -1050,7 +1105,7 @@ def taps_phase(torch, card: str, dev) -> dict:
     hdr, pay = ListSink(), ListSink()
     srx = StreamingReceiver(RxConfig(max_payload_len=1536, max_detections=8), dev, block=1 << 16,
                             header_tap=hdr, payload_tap=pay)
-    pkts, launches = path_launches(torch, "taps", lambda: srx.process(sig) + srx.flush(), _build.KERNELS)
+    pkts, launches = path_launches(torch, "taps", lambda: srx.process(sig) + srx.flush(), ALL_KERNELS)
     check_all([p.data for p in pkts], payloads, "taps")
     check([m.size for m in hdr.msgs] == [128] * len(payloads), f"taps: header messages {[m.size for m in hdr.msgs]}")
     want = [4 * (p.size + 4) for p in payloads]
@@ -1105,7 +1160,7 @@ def transceiver_phase(torch, card: str, dev) -> dict:
     from gr4_packet_modem_tpu_torch.utils.ragged import PacketBatch, ragged_concat
 
     fn, (packets, gen) = transceiver_entry(dev, bins=4, batch=24)
-    (n, res), launches = path_launches(torch, "transceiver_4bins", lambda: fn(packets, gen), _build.KERNELS)
+    (n, res), launches = path_launches(torch, "transceiver_4bins", lambda: fn(packets, gen), ALL_KERNELS)
     check(int(n) == 24, f"transceiver_4bins: accepted {int(n)} of 24")
     check_all(decoded(res), packets.to_list(), "transceiver_4bins")
     stream = fn.transmit(packets)
@@ -1146,7 +1201,7 @@ def transceiver_phase(torch, card: str, dev) -> dict:
 
     for label, run in (("loopback stream CFO 0.006", stream_loopback),
                        ("loopback SFO 1.2 ppm CFO 0.005", sfo_loopback)):
-        res, launches = path_launches(torch, label, run, _build.KERNELS)
+        res, launches = path_launches(torch, label, run, ALL_KERNELS)
         check_all(decoded(res), payloads, label)
         out[label] = {"launches": launches, "packets": len(payloads)}
     return out
@@ -1179,7 +1234,7 @@ def per_phase(torch, card: str, dev) -> dict:
     for carrier, points in (("costas", PER_POINTS), ("vv", (11.0, 20.0))):
         t0 = time.perf_counter()
         curves[carrier], launches = path_launches(
-            torch, f"per {carrier}", lambda: per_curve(dev, points, carrier=carrier), _build.KERNELS)
+            torch, f"per {carrier}", lambda: per_curve(dev, points, carrier=carrier), ALL_KERNELS)
         log(f"  per {carrier}: {len(points)} points in {time.perf_counter() - t0:.2f} s  [{card}]")
         for p in curves[carrier]:
             log(f"  per {carrier} Es/N0 {p['esn0_db']:5.1f} dB: PER {p['per']:.4f} ({p['good']}/{p['packets']} "
@@ -1315,7 +1370,7 @@ def sharded_phase(torch, card: str, dev) -> dict:
         r, pkts = stream_run(torch, card, driver, x_unit, expected, units, name)
         del driver
         if sharded:
-            for k in _build.KERNELS:
+            for k in ALL_KERNELS:
                 check(r["launches"][k] > 0, f"kernel {k} was not launched by StreamingShardedBank")
             check(keys(pkts) == keys(ref_pkts), "StreamingShardedBank 1x1: packets differ from StreamingBank's")
         else:
@@ -1330,7 +1385,7 @@ def sharded_phase(torch, card: str, dev) -> dict:
     rbank = ReceiverBank(mesh, BankConfig(rx=BENCH_CONFIG, channel_group=16))
     samples, want, _ = bench_signal(block, channels)
     x_loc = torch.from_numpy(samples).to(dev)
-    res, launches = path_launches(torch, "ReceiverBank.step", lambda: rbank.step(x_loc), _build.KERNELS)
+    res, launches = path_launches(torch, "ReceiverBank.step", lambda: rbank.step(x_loc), ALL_KERNELS)
     rx = rbank.rx
     x = rx.pad(x_loc)
     ref_res = rx.bank_step(x, 16)[2]
@@ -1354,7 +1409,7 @@ def sharded_phase(torch, card: str, dev) -> dict:
     del rbank, rx, x, x_loc, res, ref_res
 
     # 3. the dry run
-    dry, launches = path_launches(torch, "sharded_dryrun", lambda: sharded_dryrun(mesh, dev), _build.KERNELS)
+    dry, launches = path_launches(torch, "sharded_dryrun", lambda: sharded_dryrun(mesh, dev), ALL_KERNELS)
     log(f"  sharded_dryrun: {dry}")
     out["dryrun"] = dict(dry, launches=launches)
     dist.destroy_process_group()
@@ -1374,7 +1429,7 @@ def sharded_phase(torch, card: str, dev) -> dict:
               f"{world} ranks: packets differ from StreamingBank's")
         for r in ranks:
             check(r["overflow"] == (0, 0), f"{world} ranks: saturated blocks {r['overflow']}")
-            check(all(r["launches"][k] > 0 for k in _build.KERNELS), f"{world} ranks: a kernel was not launched")
+            check(all(r["launches"][k] > 0 for k in ALL_KERNELS), f"{world} ranks: a kernel was not launched")
         log(f"  {world} cards, mesh ({world // 2}, 2): {len(ranks[0]['keys'])} packets, those of StreamingBank; "
             f"{ranks[0]['blocks']} blocks in {ranks[0]['seconds']:.2f} s  [{card}]")
         out["multi_card"] = {"world": world, "seconds": ranks[0]["seconds"]}
@@ -1521,7 +1576,7 @@ def apps_phase(torch, card: str, dev, seconds: float = 3.0, count: int = 100,
         tx = packet_transmitter_pdu.run([path, mode, "1500", str(count), *device], echo=quiet)
         rx, launches = path_launches(
             torch, f"packet_receiver_file {mode}",
-            lambda: packet_receiver_file.run([path, *device], echo=quiet), _build.KERNELS)
+            lambda: packet_receiver_file.run([path, *device], echo=quiet), ALL_KERNELS)
         per = 4 * (C.stream_symbols(1500) if mode == "stream" else C.burst_symbols(1500))
         got = rx["packets"]
         check_all([p.data for p in got], [payload] * count, f"TX app -> file -> RX app, {mode}")
@@ -1540,7 +1595,7 @@ def apps_phase(torch, card: str, dev, seconds: float = 3.0, count: int = 100,
             label = f"transceiver {mode} {rate_label}"
             argv = [*device, "--seconds", str(seconds), "--samp-rate", str(rate), *extra]
             res, launches = path_launches(
-                torch, label, lambda: packet_transceiver.run(argv, echo=quiet), _build.KERNELS)
+                torch, label, lambda: packet_transceiver.run(argv, echo=quiet), ALL_KERNELS)
             check(res["sent"] > 0 and res["received"] == res["sent"],
                   f"{label}: received {res['received']} of {res['sent']} packets")
             check_all([p.data for p in res["decoded"]], res["sent_payloads"], label)
@@ -1595,7 +1650,6 @@ def apps_phase(torch, card: str, dev, seconds: float = 3.0, count: int = 100,
 
 # ------------------------------------------------------------------ examples
 
-ALL_KERNELS = ("fetch", "fetch_rows", "matched", "costas", "ldpc", "correlate")
 # the kernels each example must launch on the card (fused acquisition, the
 # Costas carrier); the others run no kernel of the six
 EXAMPLE_KERNELS = {
@@ -1674,7 +1728,8 @@ def examples_phase(torch, card: str, dev) -> dict:
     from gr4_packet_modem_tpu_torch.examples import EXAMPLES, MESH_EXAMPLES, _mesh
     from gr4_packet_modem_tpu_torch.ops import _build
 
-    check(ALL_KERNELS == _build.KERNELS, "chip_smoke.ALL_KERNELS is not _build.KERNELS")
+    check((*ALL_KERNELS, "correlate_bf16") == _build.KERNELS,
+          "chip_smoke.ALL_KERNELS and correlate_bf16 are not _build.KERNELS")
     out = {}
 
     def record(name, seconds, res, launches, cpu=None):
@@ -1886,19 +1941,6 @@ def envelope_work(rx, xp) -> list:
     return work
 
 
-def timed_or_events(torch, fn, reps: int = 10) -> dict:
-    """``timed``'s numbers (``timer`` "profiler"), or where every profiler
-    session dropped too many records, CUDA events around ``reps``
-    back-to-back calls, which for a small kernel is the host's time to
-    issue one (``timer`` "events")."""
-    try:
-        return {**timed(torch, fn, reps), "timer": "profiler"}
-    except ProfilerDropped as e:
-        ms, host = loop_ms(torch, fn, reps)
-        log(f"  ({e}: CUDA events around {reps} calls instead)")
-        return {"ms": ms, "loop_ms": ms, "host_ms": host, "timer": "events"}
-
-
 def envelope_kernel_rows(torch, card: str, rx, xp) -> list:
     """K1, K2 and K3 alone at the shapes of ``rx``'s receive of the padded
     capture ``xp`` (K1 on its frames, K2 and K3 at one payload chunk on
@@ -1917,9 +1959,9 @@ def envelope_kernel_rows(torch, card: str, rx, xp) -> list:
     rows = []
 
     def row(name, shape, err, fn, plain, lib):
-        k = timed_or_events(torch, fn)
-        pms = timed_or_events(torch, plain, reps=3)["ms"]
-        lms = timed_or_events(torch, lib)["ms"] if lib else None
+        k = timed(torch, fn)
+        pms = timed(torch, plain, reps=3)["ms"]
+        lms = timed(torch, lib)["ms"] if lib else None
         bms, by = bound(*work[name])
         rows.append({"name": name, "shape": shape, "max_abs_err": err, **k, "plain_ms": pms,
                      "library_ms": lms, "bound_ms": bms, "bound_by": by})
@@ -2185,6 +2227,222 @@ def timing_sweep(torch, card: str, dev) -> dict:
     return {"rows": rows, "launches": launches}
 
 
+# ------------------------------------------------------ acquisition backends
+
+NEW_BACKENDS = ("fused_bf16", "conv", "conv_bf16")
+# the JAX records' bf16 bench configurations (scripts/record_perf_r3.py:61-70)
+BF16_BENCH = {
+    "default_vv_bf16": {"BENCH_ACQ": "fused_bf16"},
+    "ch64_g16_bf16": {"BENCH_CHANNELS": "64", "BENCH_ACQ": "fused_bf16", "BENCH_SUSTAINED": "0"},
+}
+
+
+def bf16_work(fpad: int, s: int, n: int, nb: int) -> tuple[float, float, float]:
+    """(bytes, float32 operations, bf16 tensor-core operations) of K1's
+    bf16 form on ``fpad`` frames: the frame views read once (2 planes,
+    FPAD + 1 rows), the replica table and the two bf16 bulk tables read
+    once, both outputs written once; a frame's (1 + nb) radix-16 DFTs as
+    the kernel runs them (small_dft: 4 x 4 partial sums of 4 complex
+    multiply-adds, 8 operations each, and a 4-point DFT of 16 operations
+    for each of 4 rows: 576 operations a column) and its elementwise work
+    (the forward twiddle, and a bin's product, twiddle, power and max: 6,
+    6, 6, 3 and 1 an output); its (1 + nb) bulk products of 4 real
+    [16, N2] @ [N2, N2] products (2 operations a multiply-add)."""
+    n2 = n // 16
+    small_dft = 4 * (4 * 4 * 8 + 16)
+    nbytes = 2 * (fpad + 1) * s * 4 + nb * n * 8 + 2 * (2 * n2 * n2 * 2) + fpad * n * 8
+    f32 = fpad * ((1 + nb) * n2 * small_dft + 6 * n + nb * n * 16)
+    tc = fpad * (1 + nb) * 4 * 2 * 16 * n2 * n2
+    return nbytes, f32, tc
+
+
+def bf16_kernel_check(torch, card: str, label: str, a, x) -> dict:
+    """K1's bf16 form against its plain version on the acquirer ``a``'s
+    frames of the padded bank ``x``: every best power within 2e-2 of itself
+    plus 1e-4 of the largest, every best bin equal where the plain
+    version's best bin beats its second best by more than 5 %. Returns the
+    largest deviations and the frame views."""
+    from gr4_packet_modem_tpu_torch.ops.acquire_cuda import bf16_bin_powers, fused_best_power
+
+    n, s = a.config.fft_size, a.stride
+    ar, ai, br, bi, nf, rows = a._frames_planes(x)
+    args = (ar, ai, br, bi, a.replica_fft_r, a.replica_fft_i, n)
+    kp, kb = fused_best_power(*args, table=a.replica_table, bf16=True)
+    torch.cuda.synchronize()
+    # the plain version's bin powers: its best (and bin) and second best
+    powers = bf16_bin_powers(*args)
+    top2, top_bin = powers.topk(min(2, powers.shape[0]), dim=0)
+    del powers
+    pp, pb = top2[0], top_bin[0].to(torch.int32)
+    err = (kp - pp).abs()
+    scale = pp.max().item()
+    lim = 2e-2 * pp + 1e-4 * scale
+    worst = (err / lim).max().item()
+    rel = (err / pp.clamp(min=1e-30)).max().item()
+    # a clear best bin: ahead of the second by more than 5 % of itself and
+    # by more than twice best_pow's absolute tolerance (1e-4 x the largest),
+    # the most two bins' errors can close
+    ahead = top2[0] > 1.05 * top2[-1]
+    clear = ahead & (top2[0] - top2[-1] > 2e-4 * scale)
+    same = kb == pb
+    flips = ahead & ~same
+    flip_top = (top2[0][flips].max().item() / scale) if bool(flips.any()) else 0.0
+    log(f"  correlate_bf16 {label}: FPAD={ar.shape[0]} S={s} nb={a.num_bins}: max |d best_pow| "
+        f"{err.max().item():.3e} (largest {scale:.3e}), max relative {rel:.3e}, the largest "
+        f"deviation {100 * worst:.1f} % of its limit; best_bin equal on {same.float().mean().item():.6f} "
+        f"of all samples and on all {int(clear.sum())} samples with a clear best bin "
+        f"({100 * clear.float().mean().item():.1f} %); of the {int(ahead.sum())} whose best bin leads "
+        f"by 5 %, {int(flips.sum())} differ, each at most {flip_top:.3e} of the largest  [{card}]")
+    check(worst <= 1.0, f"correlate_bf16 {label}: best_pow beyond 2e-2 x itself + 1e-4 x max")
+    check(bool(same[clear].all()), f"correlate_bf16 {label}: best_bin differs where the best bin is clear")
+    return {"max_abs_err": err.max().item(), "max_rel_err": rel, "worst_of_limit": worst,
+            "bin_equal_frac": same.float().mean().item(), "flips_5pct": int(flips.sum()),
+            "flip_top_of_max": flip_top, "args": args}
+
+
+def backends_phase(torch, card: str, dev, launch_floor: float) -> dict:
+    """The acquisition backends the port once refused: K1's bf16 form
+    against its plain version at the bench shape and at N=4096 and 8192,
+    timed in turns with the float32 K1; ``bank_step`` of the bench bank
+    with fused_bf16, conv and conv_bf16 (group 0), each held to the fused
+    backend's detections and decoding every packet; ``bench`` at the JAX
+    records' two bf16 configurations; the syncword program with all five
+    backends."""
+    import importlib
+
+    from gr4_packet_modem_tpu_torch.entry import BENCH_BLOCK, BENCH_CHANNELS, BENCH_CONFIG
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver
+    from gr4_packet_modem_tpu_torch.ops.acquire import AcquisitionConfig, SyncwordAcquirer
+    from gr4_packet_modem_tpu_torch.ops.acquire_cuda import (
+        fused_best_power, fused_best_power_bf16_plain, replica_table,
+    )
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    samples, expected, _ = bench_signal(BENCH_BLOCK, BENCH_CHANNELS)
+    rx = Receiver(dataclasses.replace(BENCH_CONFIG, acquisition_backend="fused_bf16"), dev)
+    fp, pt = rx.front_pad, rx.pad_tail()
+
+    def padded(sig, noise):
+        x = torch.zeros(sig.shape[0], fp + sig.shape[1] + pt, dtype=torch.complex64, device=dev)
+        x[:, fp : fp + sig.shape[1]] = torch.from_numpy(sig).to(dev)
+        if noise:
+            x += noise * torch.randn(x.shape, generator=gen, device=dev, dtype=torch.complex64)
+        return x
+
+    # (a) the kernel against its plain version; (b) timed in turns with K1
+    x = padded(samples, 0.05)
+    main = bf16_kernel_check(torch, card, "N=2048", rx.acquirer, x)
+    args = main.pop("args")
+    a = rx.acquirer
+    n, s, nb, fpad = a.config.fft_size, a.stride, a.num_bins, args[0].shape[0]
+    f32_table = replica_table(a.replica_fft_r, a.replica_fft_i, n)
+
+    def bf16_call():
+        return fused_best_power(*args, table=a.replica_table, bf16=True)
+
+    def f32_call():
+        return fused_best_power(*args, table=f32_table)
+
+    k1, f1, k2, f2 = (timed(torch, fn) for fn in (bf16_call, f32_call, bf16_call, f32_call))
+    k = mean_timed(k1, k2)
+    f32_ms = (f1["ms"] + f2["ms"]) / 2
+    plain = timed(torch, lambda: fused_best_power_bf16_plain(*args), reps=3)["ms"]
+    work = bf16_work(fpad, s, n, nb)
+    terms = bound_terms(*work)
+    bms, by = bound(*work)
+    log(f"  correlate_bf16 in turns with the float32 K1: {k1['ms']:.4f}, {f1['ms']:.4f}, {k2['ms']:.4f}, "
+        f"{f2['ms']:.4f} ms (bf16/f32 {k['ms'] / f32_ms:.3f}); host {k['host_ms']:.4f} ms a call, "
+        f"loop {k['loop_ms']:.4f}; plain {plain:.4f} ms; bound {bms:.4f} ms ({by}: bytes "
+        f"{terms['bytes']:.4f}, float32 {terms['f32']:.4f}, bf16 tensor cores {terms['bf16_tc']:.4f}; "
+        f"{100 * bms / k['ms']:.1f} % of it); launch floor {launch_floor:.4f} ms  [{card}]")
+    out["correlate_bf16"] = {**main, "ms": k["ms"], "host_ms": k["host_ms"], "loop_ms": k["loop_ms"],
+                             "turns_ms": [k1["ms"], f1["ms"], k2["ms"], f2["ms"]], "f32_ms": f32_ms,
+                             "plain_ms": plain, "library_ms": None, "bound_ms": bms, "bound_by": by,
+                             "bound_terms_ms": terms, "launch_floor_ms": launch_floor,
+                             "shape": f"C={BENCH_CHANNELS} FPAD={fpad} S={s} N={n} nb={nb}"}
+    del x, args
+    for size in (4096, 8192):
+        acq = SyncwordAcquirer(AcquisitionConfig(fft_size=size, backend="fused_bf16"), dev)
+        small = padded(samples[:2, : 1 << 16], 0.05)
+        r = bf16_kernel_check(torch, card, f"N={size}", acq, small)
+        r.pop("args")
+        out[f"correlate_bf16_{size}"] = r
+        res = out["correlate_bf16"]
+        res["max_abs_err"] = max(res["max_abs_err"], r["max_abs_err"])
+    _flush.clear()
+
+    # (c) the bench bank with each new backend, against the fused backend
+    x = padded(samples, 0.0)
+    rx_fused = Receiver(BENCH_CONFIG, dev)
+    ref = rx_fused.bank_step(x, 0)[0]
+    del rx_fused
+    want = {"fused_bf16": ("correlate_bf16",), "conv": (), "conv_bf16": ()}
+    rows = {}
+    for backend in NEW_BACKENDS:
+        rxb = rx if backend == "fused_bf16" else Receiver(
+            dataclasses.replace(BENCH_CONFIG, acquisition_backend=backend), dev)
+        r, (det, _, _) = bank_run(torch, card, rxb, x, expected, backend)
+        launches = r["launches"]
+        for k_ in ("fetch", "fetch_rows", "matched", "costas", "ldpc", *want[backend]):
+            check(launches[k_] > 0, f"{backend}: kernel {k_} was not launched by the bank step")
+        check(launches["correlate"] == 0, f"{backend}: the float32 K1 was launched")
+        if backend != "fused_bf16":
+            check(launches["correlate_bf16"] == 0, f"{backend}: K1's bf16 form was launched")
+        check(torch.equal(det.valid, ref.valid), f"{backend}: valid differs from the fused backend's")
+        for f in ("index", "freq_bin"):
+            check(torch.equal(getattr(det, f)[ref.valid], getattr(ref, f)[ref.valid]),
+                  f"{backend}: {f} differs from the fused backend's")
+        log(f"  {backend}: detections equal to the fused backend's on all {int(ref.valid.sum())} valid rows")
+        rows[backend] = r
+        del rxb, det
+    out["bank"] = rows
+    out["launches_per_step"] = rows["fused_bf16"]["launches"]["correlate_bf16"]
+    del x, ref
+
+    # (d) bench at the two bf16 configurations; (e) the syncword program
+    import torch.distributed as dist
+
+    check(not dist.is_initialized(), "backends: a process group is still initialised")
+    saved = {k_: os.environ.pop(k_) for k_ in list(os.environ) if k_.startswith("BENCH_")}
+    need_rx = ("fetch", "fetch_rows", "matched", "costas", "ldpc", "correlate_bf16")
+    try:
+        bench = importlib.import_module("gr4_packet_modem_tpu_torch.bench")
+        for name, knobs in BF16_BENCH.items():
+            os.environ.update(knobs)
+            t0 = time.perf_counter()
+            rec, launches = path_launches(torch, name, lambda: bench.run([], device=str(dev), echo=False),
+                                          need_rx, show=False)
+            for k_ in knobs:
+                os.environ.pop(k_)
+            log(f"  {json.dumps(rec)}")
+            log(f"  {name}: {time.perf_counter() - t0:.1f} s with its set-up; launches {launches}")
+            check(launches["correlate"] == 0, f"{name}: the float32 K1 was launched")
+            check(rec["acq_backend"] == "fused_bf16" and rec["decoded_packet_frac"] == 1.0,
+                  f"{name}: {rec['acq_backend']}, decoded_packet_frac {rec['decoded_packet_frac']}")
+            for gate, rate in BENCH_GATES.items():
+                if gate in rec:
+                    check(rec[gate] is True and rec[rate] > 0, f"{name}: {gate} {rec[gate]}, {rate} {rec[rate]}")
+            check(("sustained_parity_ok" in rec) == (name == "default_vv_bf16"), f"{name}: sustained run")
+            out[name] = {"record": rec, "launches": launches}
+        sync = importlib.import_module("gr4_packet_modem_tpu_torch.benchmarks.benchmark_syncword_detection")
+        acquire_kernels = {**ACQUIRE_KERNELS, "fused_bf16": ("correlate_bf16", "fetch", "fetch_rows"),
+                           "conv": ("fetch", "fetch_rows"), "conv_bf16": ("fetch", "fetch_rows")}
+        for backend, need in acquire_kernels.items():
+            label = f"syncword_detection_{backend}"
+            rec, launches = path_launches(torch, label, lambda: sync.run(["4", backend], device=str(dev), echo=False),
+                                          need, show=False)
+            others = {k_: v for k_, v in launches.items() if v and k_ not in need}
+            check(not others, f"{label}: launched {others} beside acquisition's kernels")
+            log(f"  {json.dumps(rec)}")
+            out[label] = {"record": rec, "launches": launches}
+    finally:
+        os.environ.update(saved)
+    check(not dist.is_initialized(), "backends: bench left its process group")
+    _flush.clear()
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "gr4_packet_modem_tpu_torch")):
         raise SystemExit("chip_smoke: gr4_packet_modem_tpu_torch/ is missing: run it from a checkout of the repo")
@@ -2265,18 +2523,29 @@ def main() -> int:
     envres = envelope_phase(torch, card, dev, probes)
     envres["seconds"] = time.perf_counter() - t0
     log(f"  envelope: {envres['seconds']:.1f} s")
+
+    # phase 15: the acquisition backends fused_bf16, conv and conv_bf16
+    log("backends:")
+    t0 = time.perf_counter()
+    backres = backends_phase(torch, card, dev, kres["launch_floor_ms"])
+    backres["seconds"] = time.perf_counter() - t0
+    log(f"  backends: {backres['seconds']:.1f} s")
     import gr4_packet_modem_tpu_torch.io.zmq_pub  # noqa: F401  (the taps' publisher, no pyzmq here)
 
     check("jax" not in sys.modules, "jax was imported")
     jax_package = sorted(m for m in sys.modules if m.split(".")[0] == "gr4_packet_modem_tpu")
     check(not jax_package, f"modules of the JAX package were imported: {jax_package}")
 
-    main_launches = sres["fused"]["launches"]
+    # each kernel's launches on its main path: the fused bank step of phase
+    # 4, and phase 15's fused_bf16 bank step for K1's bf16 form
+    main_launches = {**sres["fused"]["launches"],
+                     "correlate_bf16": backres["launches_per_step"]}
+    numbers = {**kres, "correlate_bf16": backres["correlate_bf16"]}
     kernels = [
         {"name": k, "route": "cuda", "source": REPLACES[k][0],
          "replaces": REPLACES[k][1], "launches": main_launches[k],
-         **{f: kres[k][f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")}}
+         **{f: numbers[k][f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")}}
         for k in _build.KERNELS
     ]
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -2285,7 +2554,7 @@ def main() -> int:
                    "launch_floor_ms": kres["launch_floor_ms"], "slice": sres,
                    "streaming": stres, "taps": tapres, "tx": txres, "transceiver": trxres,
                    "per": perres, "sharded": shres, "apps": appres, "examples": exres,
-                   "benchmarks": benchres, "envelope": envres,
+                   "benchmarks": benchres, "envelope": envres, "backends": backres,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -20,7 +20,8 @@ or the result wire; otherwise 0.0):
 
 Knobs (environment, bench.py's names and defaults): ``BENCH_CHANNELS``
 (64), ``BENCH_BLOCK`` (2**19), ``BENCH_ITERS`` (20), ``BENCH_CARRIER``
-(``vv``; ``costas``), ``BENCH_ACQ`` (``fused``; ``fft``), ``BENCH_GROUP``
+(``vv``; ``costas``), ``BENCH_ACQ`` (``fused``; ``fused_bf16``, ``fft``,
+``conv``, ``conv_bf16``, as the root bench.py takes them), ``BENCH_GROUP``
 (16), ``BENCH_MAXDET`` (packets that can start in a block + 2, rounded up
 to 4, at least 16), ``BENCH_BUDGET`` (``auto``: packets a block + 4, at
 most the detection slots; ``0`` no compaction; or a number a channel),

@@ -14,7 +14,8 @@ same JSON record under the same metric name (when ``echo``) and returns it.
 - ``benchmark_packet_transmitter_pdu [stream|burst] [batch]``: the
   transmitter (no kernel);
 - ``benchmark_syncword_detection [freq_bins] [backend] [block_log2]``:
-  acquisition alone (``fft``: K2, K2b; ``fused``: K1 too);
+  acquisition alone (``fft``, ``conv``, ``conv_bf16``: K2, K2b; ``fused``:
+  K1 too; ``fused_bf16``: K1's bf16 form too);
 - ``benchmark_packet_receiver [freq_bins] [channels] [block_log2]``: the
   bank's acquisition and ``Receiver.decode_bank`` (all six kernels);
 - ``benchmark_packet_transceiver [freq_bins] [batch]``: TX -> ``rotate``

@@ -1,10 +1,10 @@
 """Syncword detection benchmark (port of benchmarks/benchmark_syncword_detection.py;
 the reference's benchmark_syncword_detection.cpp): the acquisition block
-alone on a continuous stream; metric = samples/s. On the card the ``fft``
-backend launches the region and row fetches (K2, K2b), ``fused`` the
-correlator (K1) too. The JAX program's other backends (``conv``,
-``conv_bf16``, ``fused_bf16``) are TPU workarounds the port does not have:
-``AcquisitionConfig`` refuses them.
+alone on a continuous stream; metric = samples/s. The backend is any of
+the JAX program's (``fft``, ``fused``, ``fused_bf16``, ``conv``,
+``conv_bf16``; ``auto``). On the card every backend launches the region
+and row fetches (K2, K2b); ``fused`` the correlator (K1) too, and
+``fused_bf16`` K1's bf16 form.
 
 Baseline: the GR4 reference on a Ryzen 7 5800X CPU, 49-51 / 29 / 20-21 /
 16 / 13 Msps at 0/1/2/3/4 frequency bins (results.md:35-41).

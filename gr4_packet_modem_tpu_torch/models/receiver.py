@@ -106,7 +106,8 @@ class RxConfig:
     max_detections: int = 64
     freq_bins: int = 4
     power_threshold: float = C.SYNC_POWER_THRESHOLD
-    # "fft" overlap-save correlation, "fused" the K1 correlator; "auto" is
+    # one of ops/acquire.py's BACKENDS: "fused" (the K1 correlator),
+    # "fused_bf16" (its bf16 form), "fft", "conv", "conv_bf16"; "auto" is
     # "fused" on a CUDA device (AcquisitionConfig.resolved_backend)
     acquisition_backend: str = "auto"
     acquisition_fft_size: int = C.SYNC_FFT_SIZE

@@ -43,6 +43,7 @@ JAX_ATTRIBUTES = {
     "acquirer.noise_filter": "acquirer._noise_filter",
     "acquirer.noise_gain": "acquirer._noise_gain",
     "acquirer.self_corr": "acquirer.self_corr",
+    "acquirer.conv_kernel": "acquirer._conv_kernel",
     "ldpc_vidx": "_decoder._vidx",
     "ldpc_vmask": "_decoder._vmask",
     "ldpc_h": "_decoder._h",

@@ -37,7 +37,7 @@ __all__ = [
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
-KERNELS = ("fetch", "fetch_rows", "matched", "costas", "ldpc", "correlate")
+KERNELS = ("fetch", "fetch_rows", "matched", "costas", "ldpc", "correlate", "correlate_bf16")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,6 +53,8 @@ _SIGNATURES = {
     "pm_fetch_rows": [_P, _P, _P, _I64, _I, _I, _I, _P],
     # ar, ai, br, bi, rf, tw, best_pow, best_bin, fpad, s, nb, log2n, stream
     "pm_correlate": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # ar, ai, br, bi, rep, fwd, inv, small, tw, best_pow, best_bin, fpad, s, nb, log2n, stream
+    "pm_correlate_bf16": [_P] * 11 + [_I, _I, _I, _I, _P],
     # zr, zi, taps, outr, outi, region_len, ntaps, sps, num_syms, d, stream
     "pm_matched_filter": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # sym, out, ph0, fr0, ph_end, fr_end, b, s, offset, stream

@@ -1,15 +1,17 @@
-"""Syncword acquisition: overlap-save correlation + CFAR detection.
+"""Syncword acquisition: correlation + CFAR detection.
 
-Port of the ``fft`` and ``fused`` backends of
-``gr4_packet_modem_tpu/ops/acquire.py``. The correlation against the
-``2*freq_bins+1`` frequency-shifted syncword replicas runs either as batched
-overlap-save FFTs on ``torch.fft`` (``fft``), or through the K1 fused
-correlator (``ops/acquire_cuda.py``), which reduces it to the best-bin power
-and bin per sample without materialising the per-bin correlations
-(``fused``). Detection is the chunked peak detector (event-identical to the
-reference's running-best state machine) and the candidate estimates are the
-closed-form math of syncword_detection.hpp:56-115, vectorised over
-candidates; the fused backend recomputes the complex correlation and the
+Port of ``gr4_packet_modem_tpu/ops/acquire.py`` with its five backends. The
+correlation against the ``2*freq_bins+1`` frequency-shifted syncword
+replicas runs as batched overlap-save FFTs on ``torch.fft`` (``fft``); as a
+real 2-in / 2nb-out convolution with the replica bank (``conv`` in float32,
+``conv_bf16`` with both operands rounded to bf16 and float32 accumulation);
+or through the K1 fused correlator (``ops/acquire_cuda.py``), which reduces
+it to the best-bin power and bin per sample without materialising the
+per-bin correlations (``fused`` in float32, ``fused_bf16`` in the TPU
+kernel's bf16 form). Detection is the chunked peak detector (event-identical
+to the reference's running-best state machine) and the candidate estimates
+are the closed-form math of syncword_detection.hpp:56-115, vectorised over
+candidates; the fused backends recompute the complex correlation and the
 adjacent-bin powers exactly at the candidates. Every function takes a bank
 ``[C, T]`` (a single channel is ``[T]``): acquisition is batched over
 channels.
@@ -30,13 +32,15 @@ from torch import nn
 from ..utils import constants as C
 from ..utils.firdes import rx_rrc_taps
 
-from .acquire_cuda import KERNEL_FFT_SIZES, fused_best_power, replica_table
+from .acquire_cuda import (
+    KERNEL_FFT_SIZES, fused_best_power, replica_table, replica_table_bf16,
+)
 from .costas import PI, TWO_PI
 from .fetch_cuda import fetch_regions, fetch_rows
 
 __all__ = [
     "AcquisitionConfig", "Detections", "SyncwordAcquirer",
-    "modulated_syncword", "acquirer_tables", "chunked_peak_detect",
+    "modulated_syncword", "acquirer_tables", "chunked_peak_detect", "BACKENDS",
 ]
 
 
@@ -54,6 +58,9 @@ def modulated_syncword(sps: int = 4) -> tuple[np.ndarray, float]:
     return out, self_corr
 
 
+BACKENDS = ("auto", "fused", "fused_bf16", "fft", "conv", "conv_bf16")
+
+
 @dataclass(frozen=True)
 class AcquisitionConfig:
     samples_per_symbol: int = 4
@@ -62,20 +69,24 @@ class AcquisitionConfig:
     time_threshold: int = C.SYNC_TIME_THRESHOLD
     power_threshold: float = C.SYNC_POWER_THRESHOLD
     max_detections: int = 64  # static bound per processed block
-    # "fft": overlap-save FFTs, as the reference; "fused": the K1 correlator;
-    # "auto": "fused" on a CUDA device when the kernel takes fft_size, else
-    # "fft" (resolved_backend)
+    # correlation backend:
+    #   "auto"       "fused" on a CUDA device when the kernel takes fft_size,
+    #                else "fft" (resolved_backend)
+    #   "fused"      the K1 correlator (csrc/correlate.cu)
+    #   "fused_bf16" K1's bf16 form: bulk DFTs with bf16 inputs and float32
+    #                accumulation on the tensor cores (csrc/correlate_bf16.cu);
+    #                candidate phase and adjacent powers still exact in float32
+    #   "fft"        overlap-save FFTs, as the reference
+    #   "conv"       the correlation as a real 2-plane convolution (float32)
+    #   "conv_bf16"  the same with bf16 inputs and float32 accumulation
     backend: str = "auto"
 
     def __post_init__(self):
-        if self.backend not in ("auto", "fft", "fused"):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"acquisition backend {self.backend!r} not in {BACKENDS}")
+        if self.backend in ("fused", "fused_bf16") and self.fft_size % 2048:
             raise ValueError(
-                f"acquisition backend {self.backend!r} is not ported "
-                '(the port runs "fft" and "fused"; "auto" picks one)'
-            )
-        if self.backend == "fused" and self.fft_size % 2048:
-            raise ValueError(
-                "the fused backend needs fft_size to be a multiple of 2048; "
+                f"the {self.backend} backend needs fft_size to be a multiple of 2048; "
                 'use backend="auto" to run fft for other sizes'
             )
 
@@ -114,7 +125,10 @@ def acquirer_tables(config: AcquisitionConfig) -> dict[str, np.ndarray]:
     them: ``replicas`` complex64 ``[nb, L]`` (frequency-shifted replicas,
     bin spacing pi / L rad/sample), ``noise_filter`` float32 ``[33]`` (the
     out-of-band high-pass of the noise estimate), ``noise_gain`` and
-    ``self_corr`` (float64 scalars)."""
+    ``self_corr`` (float64 scalars), ``conv_kernel`` float32 ``[L, 2, 2nb]``
+    (the conv backends' kernel, acquire.py:165-174 of the JAX package:
+    input planes re, im; outputs the bins' real then imaginary parts of
+    ``sum_k conj(rep_b[k]) x[t+k]``)."""
     from scipy import signal
 
     replica, self_corr = modulated_syncword(config.samples_per_symbol)
@@ -125,11 +139,20 @@ def acquirer_tables(config: AcquisitionConfig) -> dict[str, np.ndarray]:
     hp = signal.remez(33, [0.0, 0.22, 0.3, 0.5], [0.0, 1.0], fs=1.0).astype(
         np.float32
     )
+    replicas = (replica[None, :] * shift).astype(np.complex64)
+    nb = replicas.shape[0]
+    rr, ri = replicas.real, replicas.imag
+    kernel = np.zeros((sync_len, 2, 2 * nb), np.float32)
+    kernel[:, 0, :nb] = rr.T
+    kernel[:, 1, :nb] = ri.T
+    kernel[:, 0, nb:] = -ri.T
+    kernel[:, 1, nb:] = rr.T
     return {
-        "replicas": (replica[None, :] * shift).astype(np.complex64),
+        "replicas": replicas,
         "noise_filter": hp,
         "noise_gain": np.float64(np.sum(hp**2)),
         "self_corr": np.float64(self_corr),
+        "conv_kernel": kernel,
     }
 
 
@@ -209,6 +232,7 @@ class SyncwordAcquirer(nn.Module):
         super().__init__()
         self.config = config
         self.backend = config.resolved_backend(device)
+        self.fused = self.backend in ("fused", "fused_bf16")
         tables = acquirer_tables(config)
         self.sync_len = tables["replicas"].shape[1]
         self.num_bins = 2 * config.freq_bins + 1
@@ -225,9 +249,9 @@ class SyncwordAcquirer(nn.Module):
         # window fits only if sync_len <= time_threshold + 17 (the JAX
         # package assumes it unchecked)
         k = tables["noise_filter"].size
-        if self.backend == "fused" and self.sync_len > config.time_threshold + k // 2 + 1:
+        if self.fused and self.sync_len > config.time_threshold + k // 2 + 1:
             raise ValueError(
-                f"the fused backend needs sync_len ({self.sync_len}) <= "
+                f"the {self.backend} backend needs sync_len ({self.sync_len}) <= "
                 f"time_threshold + {k // 2 + 1} ({config.time_threshold + k // 2 + 1})"
             )
         self.stride = n - self.sync_len + 1
@@ -246,10 +270,11 @@ class SyncwordAcquirer(nn.Module):
         self.register_buffer("replica_fft_r", rf.real.contiguous(), persistent=False)
         self.register_buffer("replica_fft_i", rf.imag.contiguous(), persistent=False)
         # the same spectra in the fused kernel's layout, built once here
+        layout = {"fused": replica_table, "fused_bf16": replica_table_bf16}.get(self.backend)
         self.register_buffer(
             "replica_table",
-            replica_table(self.replica_fft_r, self.replica_fft_i, self.config.fft_size)
-            if self.backend == "fused" and self.config.fft_size in KERNEL_FFT_SIZES else None,
+            layout(self.replica_fft_r, self.replica_fft_i, self.config.fft_size)
+            if layout and self.config.fft_size in KERNEL_FFT_SIZES else None,
             persistent=False,
         )
         self._noise_taps = self.noise_filter.flip(0).tolist()
@@ -282,15 +307,40 @@ class SyncwordAcquirer(nn.Module):
         corr = torch.fft.ifft(f[:, :, None, :] * rf[None, None], dim=-1)[..., :s]
         return corr.permute(0, 2, 1, 3).reshape(c, self.num_bins, nf * s)
 
+    def _correlate_conv(self, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+        """Complex correlations ``[C, nb, T-L+1]`` of ``x`` ``[C, T]`` with
+        every replica, ``corr_b[t] = sum_k conj(rep_b[k]) x[t+k]``, as one
+        real convolution of the I/Q planes with ``conv_kernel`` (2 inputs,
+        2nb outputs, L taps). ``bf16`` rounds both operands to bf16 and
+        convolves them in float32: a product of two bf16 values is exact in
+        float32, so this is bf16 inputs with float32 accumulation (a bf16
+        convolution would round its output too). On the card cuDNN's TF32 is
+        off for the call, so ``conv`` is float32 throughout."""
+        planes = torch.view_as_real(x).permute(0, 2, 1)  # [C, 2, T]
+        weight = self.conv_kernel.permute(2, 1, 0)  # [2nb, 2, L]
+        if bf16:
+            planes = planes.to(torch.bfloat16).float()
+            weight = weight.to(torch.bfloat16).float()
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            out = torch.nn.functional.conv1d(planes.contiguous(), weight.contiguous())
+        nb = self.num_bins
+        return torch.complex(out[:, :nb], out[:, nb:])
+
+    def _correlate(self, x: torch.Tensor) -> torch.Tensor:
+        """``correlate`` of a bank ``[C, T]``."""
+        if self.backend == "fft":
+            return self._correlate_fft(x)
+        return self._correlate_conv(x, bf16=self.backend == "conv_bf16")
+
     def correlate(self, x: torch.Tensor) -> torch.Tensor:
         """Complex correlations of ``x`` ``[T]`` (or ``[C, T]``) with every
-        replica: ``[nb, T']`` (or ``[C, nb, T']``), ``T'`` = frames *
-        stride, by overlap-save FFT. The fused backend's K1 never writes
-        these (it keeps each sample's best bin), so both backends answer
-        here through the FFT; the JAX package's ``conv`` backends are not
-        ported (:class:`AcquisitionConfig` refuses them)."""
+        replica, as the JAX acquirer's ``correlate`` dispatches: the ``fft``
+        backend by overlap-save FFT, ``[nb, frames * stride]``; every other
+        backend by the convolution, ``[nb, T - L + 1]`` (the bf16 one for
+        ``conv_bf16``, float32 otherwise: the fused kernels never write the
+        per-bin correlations)."""
         single = x.ndim == 1
-        corr = self._correlate_fft(x[None] if single else x)
+        corr = self._correlate(x[None] if single else x)
         return corr[0] if single else corr
 
     def _frames_planes(self, x: torch.Tensor):
@@ -317,13 +367,14 @@ class SyncwordAcquirer(nn.Module):
 
     def _best_power_fused(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Best-bin power and bin ``[C, T']`` per sample from the K1
-        correlator (the per-bin correlations never reach device memory)."""
+        correlator, float32 or bf16 by the backend (the per-bin correlations
+        never reach device memory)."""
         n, s = self.config.fft_size, self.stride
         c = x.shape[0]
         ar, ai, br, bi, nf, rows = self._frames_planes(x)
         bp, bb = fused_best_power(
             ar, ai, br, bi, self.replica_fft_r, self.replica_fft_i, n, _BLOCK_FRAMES,
-            table=self.replica_table,
+            table=self.replica_table, bf16=self.backend == "fused_bf16",
         )
 
         def valid(a):
@@ -387,11 +438,12 @@ class SyncwordAcquirer(nn.Module):
         w = cfg.time_threshold
         nb = self.num_bins
         c, t = x.shape
-        fused = self.backend == "fused"
+        fused = self.fused
         if fused:
             best_pow, best_bin = self._best_power_fused(x)  # [C, T']
         else:
-            corr = self._correlate_fft(x)  # [C, nb, T']
+            # T' = frames * stride for fft, T - L + 1 for the conv backends
+            corr = self._correlate(x)  # [C, nb, T']
             power = corr.abs() ** 2
             best_pow = power.amax(dim=1)
             best_bin = power.argmax(dim=1)

@@ -6,7 +6,8 @@ reference headers, each ``target`` the PyTorch port's counterpart and
 counterpart launches one of the port's hand-written CUDA kernels on CUDA
 tensors, the note names it:
 
-- K1 ``csrc/correlate.cu``: fused syncword correlation (acquisition);
+- K1 ``csrc/correlate.cu``: fused syncword correlation (acquisition), and
+  its bf16 form ``csrc/correlate_bf16.cu`` (the ``fused_bf16`` backend);
 - K2 and K2b ``csrc/fetch.cu``: region fetch (symbol extraction) and row
   fetch (acquisition estimates);
 - K3 ``csrc/matched.cu``: polyphase matched filter;
@@ -84,7 +85,8 @@ BLOCK_REGISTRY: dict[str, BlockEntry] = {
     # ----------------------------------------------------------- RX chain
     "SyncwordDetection": _E("syncword_detection.hpp", "op",
         "ops.acquire.SyncwordAcquirer",
-        "K1 (fused acquisition, the default on CUDA) and K2b (estimates)"),
+        "K1 (fused acquisition, the default on CUDA; its bf16 form for fused_bf16) "
+        "and K2b (estimates)"),
     "SyncwordDetectionFilter": _E("syncword_detection_filter.hpp", "model",
         "models.receiver.Receiver.filter_detections",
         "in-packet suppression after the header pass (K2, K3, K4, K5)"),

@@ -17,8 +17,9 @@ program's keys, metric name and every non-timing field equal (``block``,
 ``expected``, the scaling records' ``devices`` and ``efficiency``), its
 rate above 0; the samples a call the transmitter and transceiver programs
 count equal to the JAX programs' and to what the port's transmitter emits.
-The acquisition backends the port does not have raise, and asking for a
-card where there is none raises.
+The syncword program with the ``conv``, ``conv_bf16`` and ``fused_bf16``
+backends finds the JAX program's detections, and asking for a card where
+there is none raises.
 """
 
 import contextlib
@@ -182,9 +183,38 @@ def test_bank_scaling_matches_jax():
 
 
 @pytest.mark.parametrize("backend", ["conv", "conv_bf16", "fused_bf16"])
-def test_syncword_unported_backends_raise(backend):
-    with pytest.raises(ValueError, match="not ported"):
-        port_program("benchmark_syncword_detection", ["2", backend, "15"])
+def test_syncword_unported_backends_raise(backend, monkeypatch):
+    """The backends the port once refused, now ported: the port's program
+    against the JAX program at 2 bins on a 2**16 block, the same record
+    and the same detections (valid, index, freq_bin) from the acquisition
+    each times, both harnesses cut to two timed calls."""
+    import benchmarks.common as jax_common
+    from gr4_packet_modem_tpu_torch.benchmarks import benchmark_syncword_detection as port_mod
+
+    seen = {}
+
+    def capture(module, key):
+        timer = module.time_fn
+
+        def time_fn(step, *args, **kw):
+            seen[key] = step(*args)
+            return timer(step, *args, **{**kw, "iters": 2})
+
+        monkeypatch.setattr(module, "time_fn", time_fn)
+
+    capture(jax_common, "jax")
+    capture(port_mod, "port")
+    argv = ["2", backend, "16"]
+    (want,) = jax_program("benchmark_syncword_detection", argv, monkeypatch)
+    got = port_program("benchmark_syncword_detection", argv)
+    same_record(got, want)
+    assert got["backend"] == backend
+    j, p = seen["jax"], seen["port"]
+    v = np.asarray(j.valid)
+    assert v.sum() >= 2
+    np.testing.assert_array_equal(p.valid.numpy(), v)
+    for field in ("index", "freq_bin"):
+        np.testing.assert_array_equal(getattr(p, field).numpy()[v], np.asarray(getattr(j, field))[v])
 
 
 @pytest.mark.parametrize("name", [*BENCHMARKS, "bench"])

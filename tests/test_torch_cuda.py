@@ -20,6 +20,9 @@ from gr4_packet_modem_tpu_torch.ops.matched_cuda import matched_filter, matched_
 
 pytestmark = pytest.mark.cuda
 
+# the kernels of a receive with fused acquisition (all but K1's bf16 form)
+RECEIVE_KERNELS = tuple(k for k in _build.KERNELS if k != "correlate_bf16")
+
 
 @pytest.fixture
 def dev():
@@ -139,6 +142,106 @@ def test_correlate_matches_plain(dev, n, fpad, nb):
     pp, pb = fused_best_power_plain(*views, rf[0], rf[1], n)
     torch.testing.assert_close(kp, pp, rtol=1e-4, atol=1e-5 * pp.max().item())
     assert (kb == pb).float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize(
+    "n,fpad,nb",
+    [(2048, 48, 9), (2048, 16, 1), (2048, 5, 9), (4096, 7, 9), (4096, 6, 1), (8192, 3, 9)],
+)
+def test_correlate_bf16_matches_plain(dev, n, fpad, nb):
+    """K1's bf16 form against its plain version: best power within 2e-2 of
+    itself plus 1e-4 of the largest, best bin equal wherever the plain
+    version's best bin beats its second best by more than 5 %."""
+    from gr4_packet_modem_tpu_torch.ops.acquire_cuda import bf16_bin_powers, fused_best_power
+
+    g = torch.Generator(device=dev).manual_seed(n + nb)
+    s = n - 296
+    x = torch.randn(2, (fpad + 1) * s, generator=g, device=dev)
+    views = (x[0, : fpad * s].view(fpad, s), x[1, : fpad * s].view(fpad, s),
+             x[0, s:].view(fpad, s), x[1, s:].view(fpad, s))
+    rf = torch.randn(2, nb, n, generator=g, device=dev)
+    before = _build.launch_counts()["correlate_bf16"]
+    kp, kb = fused_best_power(*views, rf[0], rf[1], n, block_frames=1, bf16=True)
+    assert _build.launch_counts()["correlate_bf16"] == before + 1
+    powers = bf16_bin_powers(*views, rf[0], rf[1], n)
+    pp, pb = powers.max(dim=0)
+    assert ((kp - pp).abs() <= 2e-2 * pp + 1e-4 * pp.max()).all()
+    top2 = powers.topk(min(nb, 2), dim=0).values
+    clear = top2[0] > 1.05 * top2[-1] if nb > 1 else torch.ones_like(kb, dtype=torch.bool)
+    assert torch.equal(kb[clear], pb.to(torch.int32)[clear])
+
+
+def test_bank_step_fused_bf16_decodes(dev):
+    """A 4-channel bank of three 1500-byte bursts a channel, channel c
+    rotated by 0.1 c rad, in complex noise of 0.05 a component from numpy
+    (in exact silence the bf16 form also detects its own rounding error in
+    the tail, as the JAX kernel does: the next test), through
+    ``bank_step`` with fused_bf16 acquisition: every packet byte-exact,
+    the fused backend's detections, K1's bf16 form launched and its
+    float32 form not."""
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver, RxConfig
+    from gr4_packet_modem_tpu_torch.utils.stimulus import burst_samples
+
+    rng = np.random.default_rng(4)
+    payloads = [rng.integers(0, 256, 1500, dtype=np.uint8) for _ in range(3)]
+    stream = np.concatenate([burst_samples(p, packet_index=i) for i, p in enumerate(payloads)])
+    rows = {}
+    for backend in ("fused", "fused_bf16"):
+        rx = Receiver(RxConfig(max_payload_len=1536, max_detections=8, payload_carrier="vv",
+                               acquisition_backend=backend), dev)
+        fp, pt = rx.front_pad, rx.pad_tail()
+        x = torch.zeros(4, fp + stream.size + pt, dtype=torch.complex64, device=dev)
+        rot = torch.exp(1j * 0.1 * torch.arange(4, dtype=torch.float64)).to(torch.complex64)
+        x[:, fp : fp + stream.size] = torch.from_numpy(stream).to(dev) * rot.to(dev)[:, None]
+        noise = np.random.default_rng(5).standard_normal((2, *x.shape)).astype(np.float32)
+        x += 0.05 * torch.complex(*torch.from_numpy(noise).to(dev))
+        _build.reset_launch_counts()
+        det, _, res, _ = rx.bank_step(x, 0)
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+        rows[backend] = det
+        acc = res.accepted.view(4, -1).cpu().numpy()
+        data = res.data.view(4, acc.shape[1], -1).cpu().numpy()
+        for c in range(4):
+            got = [data[c, i, :1500] for i in np.nonzero(acc[c])[0]]
+            assert len(got) == 3 and all(np.array_equal(a, b) for a, b in zip(got, payloads))
+    assert launches["correlate_bf16"] == 1 and launches["correlate"] == 0, launches
+    a, b = rows["fused"], rows["fused_bf16"]
+    assert torch.equal(a.valid, b.valid)
+    for f in ("index", "freq_bin"):
+        assert torch.equal(getattr(a, f)[a.valid], getattr(b, f)[b.valid])
+
+
+def test_silent_tail_fused_bf16_matches_plain(dev):
+    """The previous test's bank without its noise: three bursts, then exact
+    silence. Acquired with fused_bf16 on the card (K1's bf16 form) and on
+    CPU tensors (its plain version), every detection is equal, the extra
+    ones in the silent tail of channels 0 and 2 (76328 and 76329, bin -4)
+    included: the JAX kernel makes the same ones
+    (tests/test_torch_acquire_backends.py::test_silent_tail_detections_equal_jax)."""
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver, RxConfig
+    from gr4_packet_modem_tpu_torch.utils.stimulus import burst_samples
+
+    rng = np.random.default_rng(4)
+    payloads = [rng.integers(0, 256, 1500, dtype=np.uint8) for _ in range(3)]
+    stream = np.concatenate([burst_samples(p, packet_index=i) for i, p in enumerate(payloads)])
+    cfg = RxConfig(max_payload_len=1536, max_detections=8, payload_carrier="vv",
+                   acquisition_backend="fused_bf16")
+    dets = {}
+    for where in (dev, torch.device("cpu")):
+        rx = Receiver(cfg, where)
+        fp, pt = rx.front_pad, rx.pad_tail()
+        x = np.zeros((4, fp + stream.size + pt), np.complex64)
+        x[:, fp : fp + stream.size] = stream * np.exp(1j * 0.1 * np.arange(4))[:, None].astype(np.complex64)
+        _build.reset_launch_counts()
+        dets[where.type] = rx.acquirer.acquire(torch.from_numpy(x).to(where)).map(lambda t: t.cpu())
+        assert _build.launch_counts()["correlate_bf16"] == (1 if where.type == "cuda" else 0)
+    card, plain = dets["cuda"], dets["cpu"]
+    assert torch.equal(card.valid, plain.valid)
+    for f in ("index", "freq_bin"):
+        assert torch.equal(getattr(card, f)[plain.valid], getattr(plain, f)[plain.valid])
+    tail = {c: card.index[c][card.valid[c]].tolist()[3:] for c in range(4)}
+    assert tail == {0: [76328], 1: [], 2: [76329], 3: []}, tail
 
 
 @pytest.mark.parametrize("d", [37, 1536])
@@ -264,7 +367,7 @@ def test_transceiver_app_burst_loopback_on_card(dev):
     launches = _build.launch_counts()
     assert res["sent"] >= 4 and res["received"] == res["sent"] == len(res["sent_payloads"])
     assert all(np.array_equal(p.data, q) for p, q in zip(res["decoded"], res["sent_payloads"]))
-    assert all(launches[k] > 0 for k in _build.KERNELS), launches
+    assert all(launches[k] > 0 for k in RECEIVE_KERNELS), launches
 
 
 def test_u16_max_costas_decodes_on_card(dev):
@@ -298,4 +401,4 @@ def test_u16_max_costas_decodes_on_card(dev):
     assert int(res.lengths[row]) == max_len
     np.testing.assert_array_equal(res.data[row, :max_len].cpu().numpy(), payload)
     assert launches["costas"] == 2 and launches["matched"] == 1 + 129, launches
-    assert all(launches[k] > 0 for k in _build.KERNELS), launches
+    assert all(launches[k] > 0 for k in RECEIVE_KERNELS), launches

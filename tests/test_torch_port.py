@@ -126,7 +126,7 @@ def test_chip_smoke_fails_without_cuda():
     "kw",
     [
         dict(payload_carrier="vv", max_payload_len=11),  # V&V with no block
-        dict(acquisition_backend="conv"),  # the conv backends are not ported
+        dict(acquisition_backend="conv_f16"),  # no such acquisition backend
         dict(payload_carrier="pll"),
         dict(max_payload_len=0),
     ],
