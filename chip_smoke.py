@@ -128,7 +128,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    its second by more than 5 % and by more than 2e-4 of the largest),
    timed in turns with the float32 K1, with its bound's three terms
    (bytes, float32 operations, bf16 tensor-core operations at 989
-   TFLOP/s); ``bank_step`` of the bench bank at group 0 with each of the
+   TFLOP/s), its registers, spills, shared memory, resident blocks and
+   frames in flight an SM at each size, and the HGMMA instructions in its
+   SASS (``cuobjdump``; at N=2048 there must be some); ``bank_step`` of
+   the bench bank at group 0 with each of the
    three backends, every packet byte-exact and the fused backend's
    detections, ``correlate_bf16`` launched on the ``fused_bf16`` path and
    neither K1 on the conv paths; ``bench`` at the JAX records'
@@ -2300,6 +2303,58 @@ def bf16_kernel_check(torch, card: str, label: str, a, x) -> dict:
             "flip_top_of_max": flip_top, "args": args}
 
 
+def bf16_kernel_report(torch, card: str) -> dict:
+    """What the card gives K1's bf16 form at each size (registers and local
+    bytes a thread, shared memory and threads a block, resident blocks and
+    frames in flight an SM), the ptxas lines of its build, and the count of
+    HGMMA (wgmma) and HMMA (mma.sync) instructions in each of its kernels'
+    SASS (cuobjdump on the built library)."""
+    import re
+
+    from gr4_packet_modem_tpu_torch.ops import _build
+    from gr4_packet_modem_tpu_torch.ops.acquire_cuda import KERNEL_FFT_SIZES, bf16_kernel_resources
+
+    out = {"resources": {n: bf16_kernel_resources(n) for n in KERNEL_FFT_SIZES}}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, r in out["resources"].items():
+        log(f"  correlate_bf16 N={n}: {r['registers']} registers and {r['local_bytes']} local bytes a "
+            f"thread, {r['shared_bytes']} B shared memory and {r['threads']} threads a block, "
+            f"{r['blocks_per_sm']} block(s) and {r['frames_per_sm']} frames in flight an SM "
+            f"({sms} SMs)  [{card}]")
+    path = _build.library_path()
+    lines, keep = [], False
+    for line in path.with_suffix(".log").read_text().splitlines():
+        if "correlate_bf16" in line:
+            keep = True
+            lines.append(line.strip())
+        elif keep and ("spill" in line or "Used" in line):
+            lines.append(line.strip())
+        else:
+            keep = False
+    for line in lines:
+        log(f"  ptxas: {line}")
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "correlate_bf16" in m.group(1) else None
+            if fn:
+                counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn:
+            for op in counts[fn]:
+                counts[fn][op] += bool(re.search(rf"\b{op}\.", line))
+    for name, c in counts.items():
+        short = "correlate_bf16_wgmma" if "wgmma" in name else re.sub(r".*(correlate_bf16_mma\w*?Li\d+).*", r"\1", name)
+        log(f"  SASS {short}: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA")
+    wgmma = [c for name, c in counts.items() if "wgmma" in name]
+    check(len(wgmma) == 1 and wgmma[0]["HGMMA"] > 0, f"correlate_bf16 at N=2048 has no HGMMA in its SASS: {counts}")
+    out["ptxas"] = lines
+    out["sass"] = counts
+    return out
+
+
 def backends_phase(torch, card: str, dev, launch_floor: float) -> dict:
     """The acquisition backends the port once refused: K1's bf16 form
     against its plain version at the bench shape and at N=4096 and 8192,
@@ -2317,7 +2372,7 @@ def backends_phase(torch, card: str, dev, launch_floor: float) -> dict:
         fused_best_power, fused_best_power_bf16_plain, replica_table,
     )
 
-    out = {}
+    out = {"kernel": bf16_kernel_report(torch, card)}
     gen = torch.Generator(device=dev).manual_seed(4321)
     samples, expected, _ = bench_signal(BENCH_BLOCK, BENCH_CHANNELS)
     rx = Receiver(dataclasses.replace(BENCH_CONFIG, acquisition_backend="fused_bf16"), dev)

@@ -53,8 +53,10 @@ _SIGNATURES = {
     "pm_fetch_rows": [_P, _P, _P, _I64, _I, _I, _I, _P],
     # ar, ai, br, bi, rf, tw, best_pow, best_bin, fpad, s, nb, log2n, stream
     "pm_correlate": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # ar, ai, br, bi, rep, fwd, inv, small, tw, best_pow, best_bin, fpad, s, nb, log2n, stream
-    "pm_correlate_bf16": [_P] * 11 + [_I, _I, _I, _I, _P],
+    # ar, ai, br, bi, rep, w2c, small, tw, best_pow, best_bin, fpad, s, nb, log2n, stream
+    "pm_correlate_bf16": [_P] * 10 + [_I, _I, _I, _I, _P],
+    # log2n, out[6] (no launch: the bf16 kernel's registers, shared memory, residency)
+    "pm_correlate_bf16_resources": [_I, _P],
     # zr, zi, taps, outr, outi, region_len, ntaps, sps, num_syms, d, stream
     "pm_matched_filter": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # sym, out, ph0, fr0, ph_end, fr_end, b, s, offset, stream

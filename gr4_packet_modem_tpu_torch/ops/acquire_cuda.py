@@ -19,12 +19,16 @@ With ``bf16=True`` it computes the TPU kernel's bf16 form instead
 (``_make_kernel(..., bf16=True)``): both DFTs factored as N = 16 x N2, the
 bulk products over N2 with bf16 inputs and float32 accumulation, the
 radix-16 DFTs in float32 with their tables rounded to bf16. CUDA tensors
-launch ``csrc/correlate_bf16.cu`` (bf16 tensor cores); CPU tensors run
-:func:`fused_best_power_bf16_plain`, the same factorization in torch.
+launch ``csrc/correlate_bf16.cu`` (bf16 tensor cores: persistent blocks
+with wgmma at N=2048, mma.sync at 4096 and 8192; :func:`persistent_walk`
+models the first's frames, :func:`bf16_kernel_resources` reads what the
+card gives each); CPU tensors run :func:`fused_best_power_bf16_plain`, the
+same factorization in torch.
 """
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import numpy as np
@@ -36,7 +40,8 @@ from . import _build
 __all__ = [
     "fused_best_power", "fused_best_power_plain", "replica_table", "KERNEL_FFT_SIZES",
     "dft_tables", "bf16_tables", "bf16_bin_powers", "fused_best_power_bf16_plain",
-    "fragment_index", "replica_table_bf16",
+    "fragment_index", "replica_table_bf16", "persistent_walk", "bf16_kernel_resources",
+    "WGMMA_FFT_SIZES",
 ]
 
 # the kernel's transform sizes: 16 points a thread, N / 16 threads a frame
@@ -134,11 +139,27 @@ def _b_fragments(t: np.ndarray) -> np.ndarray:
     return np.stack(words, axis=-1).view(np.int32)
 
 
+def _b_core_matrices(t: np.ndarray) -> np.ndarray:
+    """A complex ``[K, N]`` table as wgmma reads its B operand from shared
+    memory (K-major, no swizzle), rounded to bf16: int16 ``[2, N/8, K/8,
+    8, 8]``, for part (re, im), column block ``n // 8`` and row block
+    ``k // 8`` one core matrix of 128 bytes, column ``n % 8`` at 16 bytes
+    a column and row ``k % 8`` within it. Core matrices are 128 bytes apart
+    along K and ``K/8 * 128`` along N (the descriptor's leading and stride
+    byte offsets in ``csrc/correlate_bf16.cu``)."""
+    k, n = t.shape
+    parts = [_bf16_bits(p).reshape(k // 8, 8, n // 8, 8).transpose(2, 0, 3, 1)
+             for p in (t.real, t.imag)]
+    return np.ascontiguousarray(np.stack(parts)).view(np.int16)
+
+
 def fragment_index(n: int) -> np.ndarray:
     """Where the accumulator fragments of a ``[16, N2]`` product sit in the
     ``[k1, k2]`` spectrum, as the flat frequency ``k1 + 16 k2``: int64
     ``[N2/8, 32, 4]``, for n-tile ``nt``, lane ``4 g + q`` and value ``i``
-    the row ``g + 8 (i // 2)`` and column ``8 nt + 2 q + i % 2``."""
+    the row ``g + 8 (i // 2)`` and column ``8 nt + 2 q + i % 2``. wgmma's
+    m64 accumulator gives each of its four warps this layout for its own
+    16 rows."""
     n2 = n // _N1
     lane = np.arange(32)[:, None]
     i = np.arange(4)[None, :]
@@ -147,33 +168,79 @@ def fragment_index(n: int) -> np.ndarray:
     return k1 + _N1 * k2
 
 
+# the sizes whose kernel runs the bulk products with wgmma from one shared-
+# memory table, and its walk: blocks of WG_GROUPS warpgroups, each a group of
+# WG_FRAMES frames at a time (csrc/correlate_bf16.cu, namespace wg)
+WGMMA_FFT_SIZES = (2048,)
+WG_GROUPS = 2
+WG_FRAMES = 4
+
+
 @lru_cache(maxsize=8)
 def bf16_tables(n: int) -> dict[str, np.ndarray]:
-    """The bf16 kernel's host tables, in numpy: ``fwd`` and ``inv``, the
-    bulk factors ``f2`` and ``w2c`` as B fragments (:func:`_b_fragments`);
-    ``small``, float32 ``[2, 16, 16, 2]``, ``f1`` and ``w1c`` rounded to
-    bf16 as (re, im) pairs; ``tw``, float32 ``[2, 16, N2, 2]``, the forward
-    and the inverse twiddles (float32, as the TPU kernel keeps them)."""
+    """The bf16 kernel's host tables, in numpy: ``w2c``, the bulk factor
+    ``w2c`` rounded to bf16, which serves both bulk products (rounded, ``f2``
+    is N2 times its conjugate): at the sizes of ``WGMMA_FFT_SIZES`` its
+    columns ``0 .. N2/2 - 1`` in wgmma's layout (:func:`_b_core_matrices`;
+    column ``n + N2/2`` is column ``n`` times ``(-1)^k``, which the kernel
+    applies to its A operand; bit for bit but where the exact value is 0
+    and the table holds rounding noise under 1e-15), otherwise all of it
+    as mma's B fragments (:func:`_b_fragments`); ``small``, float32 ``[2,
+    16, 16, 2]``, ``f1`` and ``w1c`` rounded to bf16 as (re, im) pairs;
+    ``tw``, float32 ``[2, 16, N2, 2]``, the forward and the inverse
+    twiddles (float32, as the TPU kernel keeps them)."""
     t = dft_tables(n)
 
     def rounded(a):
         bits = np.stack([_bf16_bits(a.real), _bf16_bits(a.imag)], axis=-1)
         return (bits.astype(np.uint32) << 16).view(np.float32)
 
+    w2c = t["w2c"]
     return {
-        "fwd": _b_fragments(t["f2"]),
-        "inv": _b_fragments(t["w2c"]),
+        "w2c": _b_core_matrices(w2c[:, : w2c.shape[1] // 2]) if n in WGMMA_FFT_SIZES else _b_fragments(w2c),
         "small": np.stack([rounded(t["f1"]), rounded(t["w1c"])]),
         "tw": np.stack([t["twf"][:, 0], t["tw"][:, 0]]).view(np.float32).reshape(2, _N1, -1, 2),
     }
+
+
+def persistent_walk(fpad: int, resident: int) -> np.ndarray:
+    """The frames of the wgmma kernel's persistent walk: its grid is
+    ``min(resident, ceil(ceil(fpad / WG_FRAMES) / WG_GROUPS))`` blocks (at
+    most the card's resident blocks), and warpgroup ``w`` of block ``k``
+    takes the groups of WG_FRAMES frames ``g = WG_GROUPS k + w``, then
+    ``g + WG_GROUPS * blocks``, ... while ``g < ceil(fpad / WG_FRAMES)``;
+    its warp ``i`` owns frame ``WG_FRAMES g + i``. Returns int64 ``[blocks,
+    WG_GROUPS, steps, WG_FRAMES]``: the frame each warp owns at each step,
+    -1 where it owns none (the ragged last group, or a warpgroup whose walk
+    ended)."""
+    groups = -(-fpad // WG_FRAMES)
+    blocks = min(resident, -(-groups // WG_GROUPS))
+    steps = -(-groups // (WG_GROUPS * blocks))
+    g = (WG_GROUPS * np.arange(blocks)[:, None, None] + np.arange(WG_GROUPS)[None, :, None]
+         + WG_GROUPS * blocks * np.arange(steps)[None, None, :])
+    frames = WG_FRAMES * g[..., None] + np.arange(WG_FRAMES)
+    return np.where((g[..., None] < groups) & (frames < fpad), frames, -1)
 
 
 @lru_cache(maxsize=8)
 def _bf16_device_tables(n: int, device: torch.device) -> tuple[torch.Tensor, ...]:
     """:func:`bf16_tables` on ``device``, and :func:`fragment_index`."""
     t = bf16_tables(n)
-    return (*(torch.from_numpy(t[k]).to(device) for k in ("fwd", "inv", "small", "tw")),
+    return (*(torch.from_numpy(t[k]).to(device) for k in ("w2c", "small", "tw")),
             torch.from_numpy(fragment_index(n)).to(device))
+
+
+def bf16_kernel_resources(fft_size: int) -> dict[str, int]:
+    """What the card gives the bf16 kernel at ``fft_size`` (a CUDA device
+    needed): registers and local (spill) bytes a thread, dynamic shared
+    memory bytes and threads a block, resident blocks and frames in flight
+    an SM."""
+    out = (ctypes.c_int * 6)()
+    status = _build.library().pm_correlate_bf16_resources(fft_size.bit_length() - 1, out)
+    if status != 0:
+        raise RuntimeError(f"pm_correlate_bf16_resources: CUDA error {status}")
+    keys = ("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm", "frames_per_sm")
+    return dict(zip(keys, out))
 
 
 def replica_table_bf16(rfr: torch.Tensor, rfi: torch.Tensor, fft_size: int) -> torch.Tensor:
@@ -375,7 +442,7 @@ def fused_best_power(
     if not 0 < nb <= MAX_BINS:
         raise ValueError(f"the CUDA correlator takes 1 to {MAX_BINS} bins, got {nb}")
     if bf16:
-        fwd, inv, small, tw, _ = _bf16_device_tables(fft_size, ar.device)
+        w2c, small, tw, _ = _bf16_device_tables(fft_size, ar.device)
         rf = replica_table_bf16(rfr, rfi, fft_size) if table is None else table
         shape = (nb, fft_size // 128, 2, 32, 4)
     else:
@@ -394,7 +461,7 @@ def fused_best_power(
         _build.launch(
             "correlate_bf16", "pm_correlate_bf16", ar.device,
             ar.data_ptr(), ai.data_ptr(), br.data_ptr(), bi.data_ptr(), rf.data_ptr(),
-            fwd.data_ptr(), inv.data_ptr(), small.data_ptr(), tw.data_ptr(),
+            w2c.data_ptr(), small.data_ptr(), tw.data_ptr(),
             best_pow.data_ptr(), best_bin.data_ptr(),
             fpad, s, nb, fft_size.bit_length() - 1, _build.stream_of(ar),
         )

@@ -30,6 +30,9 @@ helpers as numpy arrays, and the same arrays go to both packages. Held to:
   the bf16 form makes in the silent tail included.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -52,6 +55,7 @@ from gr4_packet_modem_tpu_torch.ops.acquire import (  # noqa: E402
     acquirer_tables,
 )
 from gr4_packet_modem_tpu_torch.ops.acquire_cuda import (  # noqa: E402
+    WGMMA_FFT_SIZES,
     bf16_tables,
     dft_tables,
     fragment_index,
@@ -122,8 +126,13 @@ def test_bf16_plain_matches_jax_kernel():
 @pytest.mark.parametrize("n", [2048, 8192])
 def test_bf16_kernel_tables_layout(n):
     """The host tables of ``csrc/correlate_bf16.cu`` read back through the
-    mma.m16n8k16 fragment layouts give the TPU kernel's bf16-rounded
-    factors, and the accumulator layout covers every spectrum point once."""
+    kernel's layouts give the TPU kernel's bf16-rounded factors: W2c at
+    N=2048 through wgmma's descriptor arithmetic (the kernel's core-matrix
+    size and leading and stride byte offsets, read from its source; the
+    table holds columns 0 .. 63, and column n + 64 is column n times
+    (-1)^k but for rounding noise under 1e-15 where the exact value is 0),
+    at N=8192 through the mma.m16n8k16 B fragments; and the accumulator
+    layout covers every spectrum point once."""
     t = dft_tables(n)
     tab = bf16_tables(n)
     n2 = n // 16
@@ -131,18 +140,46 @@ def test_bf16_kernel_tables_layout(n):
     def bf16(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16).float().numpy()
 
-    for name, mat in (("fwd", t["f2"]), ("inv", t["w2c"])):
-        words = tab[name].view(np.uint32)  # [N2/8, N2/16, 32, 4]
+    assert set(tab) == {"w2c", "small", "tw"}
+    got = np.zeros((2, n2, n2), np.float32)
+    if n in WGMMA_FFT_SIZES:
+        src = (Path(bf16_tables.__wrapped__.__code__.co_filename).parents[1] / "csrc" / "correlate_bf16.cu").read_text()
+        wg = src[src.index("namespace wg {"):src.index("}  // namespace wg")]
+        consts = {}
+        for name, expr in re.findall(r"constexpr int (k\w+) = ([^;]+);", wg):
+            consts[name] = eval(expr.replace("/", "//"), {}, dict(consts, kN1=16))
+        assert consts["kN2"] == n2 and consts["kTableBytes"] == tab["w2c"].nbytes
+        core, lbo, sbo, half = consts["kCore"], consts["kLbo"], consts["kSbo"], consts["kHalf"]
+        raw = tab["w2c"].view(np.uint8).ravel()
+        p, k, c = np.indices((2, n2, half))  # part, row (k2), column (n2)
+        # table_desc: plane p at half / 8 column blocks of sbo bytes, then
+        # the column block and row block, then 16 bytes a column, 2 a row
+        byte = (p * (half // 8) + c // 8) * sbo + (k // 8) * lbo + (c % 8) * 16 + (k % 8) * 2
+        assert core == 128 and lbo == core and half == n2 // 2 and byte.max() + 2 == raw.size
+        assert np.array_equal(np.sort(byte.ravel()), np.arange(0, raw.size, 2))
+        bits = raw[byte].astype(np.uint32) | (raw[byte + 1].astype(np.uint32) << 8)
+        lo = (bits << 16).view(np.float32)
+        # the kernel's columns 64 and up: W2c[k][n + 64] = (-1)^k W2c[k][n],
+        # bit for bit but where the exact value is 0 and the float32 table
+        # holds rounding noise (under 1e-15 both ways)
+        sign = np.where(np.arange(n2) % 2, -1.0, 1.0).astype(np.float32)[:, None]
+        for part, mat in enumerate((t["w2c"].real, t["w2c"].imag)):
+            want = bf16(mat)[:, half:]
+            noise = np.abs(mat[:, half:]) < 1e-15
+            np.testing.assert_array_equal((sign * lo[part])[~noise], want[~noise])
+            assert np.abs(sign * lo[part] - want)[noise].max() < 1e-15
+        got = lo
+    else:
+        words = tab["w2c"].view(np.uint32)  # [N2/8, N2/16, 32, 4]
         assert words.shape == (n2 // 8, n2 // 16, 32, 4)
-        got = np.zeros((2, n2, n2), np.float32)
         for w, (part, r0) in enumerate([(0, 0), (0, 8), (1, 0), (1, 8)]):
             for half in range(2):  # the low half holds the lower row
                 vals = ((words[..., w] >> (16 * half)) & 0xFFFF).astype(np.uint32) << 16
                 nt, ks, lane = np.indices(words.shape[:3])
                 row = 16 * ks + 2 * (lane & 3) + r0 + half
                 got[part, row, 8 * nt + (lane >> 2)] = vals.view(np.float32)
-        np.testing.assert_array_equal(got[0], bf16(mat.real), err_msg=name)
-        np.testing.assert_array_equal(got[1], bf16(mat.imag), err_msg=name)
+    np.testing.assert_array_equal(got[0], bf16(t["w2c"].real)[:, : got.shape[2]])
+    np.testing.assert_array_equal(got[1], bf16(t["w2c"].imag)[:, : got.shape[2]])
     small = tab["small"]
     np.testing.assert_array_equal(small[0, ..., 0] + 1j * small[0, ..., 1], bf16(t["f1"].real) + 1j * bf16(t["f1"].imag))
     np.testing.assert_array_equal(small[1, ..., 0] + 1j * small[1, ..., 1], bf16(t["w1c"].real) + 1j * bf16(t["w1c"].imag))
@@ -156,6 +193,29 @@ def test_bf16_kernel_tables_layout(n):
     assert table.shape == (3, n2 // 8, 2, 32, 4)
     np.testing.assert_array_equal(table[:, :, 0], rf[0][:, idx])
     np.testing.assert_array_equal(table[:, :, 1], rf[1][:, idx])
+
+
+@pytest.mark.parametrize("n", [2048, 4096, 8192])
+def test_bf16_one_table_identity(n):
+    """Rounded to bf16, the forward bulk factor is N2 times the conjugate of
+    the inverse one and symmetric, so the kernel's forward product from the
+    W2c table alone, ``N2 (B @ conj(W2c))``, equals ``B @ F2`` bit for bit
+    in float32 for bf16-valued B (N2 a power of two)."""
+    t = dft_tables(n)
+    n2 = n // 16
+
+    def bf16(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16).float()
+
+    f2r, f2i, wr, wi = bf16(t["f2"].real), bf16(t["f2"].imag), bf16(t["w2c"].real), bf16(t["w2c"].imag)
+    assert torch.equal(f2r, n2 * wr) and torch.equal(f2i, -n2 * wi)
+    assert np.array_equal(t["f2"], t["f2"].T)
+    rng = np.random.default_rng(n)
+    br, bi = (bf16(rng.standard_normal((3, 16, n2)).astype(np.float32)) for _ in range(2))
+    want_r, want_i = br @ f2r - bi @ f2i, br @ f2i + bi @ f2r
+    # re = Br Wr + Bi Wi, im = Bi Wr - Br Wi (the kernel's four products)
+    got_r, got_i = n2 * (br @ wr + bi @ wi), n2 * (bi @ wr - br @ wi)
+    assert torch.equal(got_r, want_r) and torch.equal(got_i, want_i)
 
 
 @pytest.mark.parametrize("backend", BACKENDS[1:])

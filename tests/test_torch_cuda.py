@@ -152,6 +152,27 @@ def test_correlate_bf16_matches_plain(dev, n, fpad, nb):
     """K1's bf16 form against its plain version: best power within 2e-2 of
     itself plus 1e-4 of the largest, best bin equal wherever the plain
     version's best bin beats its second best by more than 5 %."""
+    _bf16_against_plain(dev, n, fpad, nb)
+
+
+@pytest.mark.parametrize("fpad", [1, 3, 5, 67, "beyond"])
+def test_correlate_bf16_ragged_frames(dev, fpad):
+    """K1's bf16 form at N=2048 (the persistent wgmma kernel) on frame
+    counts whose last group of four is ragged or alone, and on more frames
+    than the card holds in flight at once ("beyond": twice its resident
+    frames plus 3, from ``bf16_kernel_resources``), under the gate of
+    ``test_correlate_bf16_matches_plain``."""
+    from gr4_packet_modem_tpu_torch.ops.acquire_cuda import bf16_kernel_resources
+
+    if fpad == "beyond":
+        res = bf16_kernel_resources(2048)
+        resident = res["frames_per_sm"] * torch.cuda.get_device_properties(dev).multi_processor_count
+        assert resident > 0
+        fpad = 2 * resident + 3
+    _bf16_against_plain(dev, 2048, fpad, 9)
+
+
+def _bf16_against_plain(dev, n, fpad, nb):
     from gr4_packet_modem_tpu_torch.ops.acquire_cuda import bf16_bin_powers, fused_best_power
 
     g = torch.Generator(device=dev).manual_seed(n + nb)

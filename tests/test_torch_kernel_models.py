@@ -17,6 +17,11 @@ plan (``fetch_cuda.fetch_plan``: items of four samples, the float4 and
 float2 load branches, the vector or scalar stores, the scalar tail, the
 grid) and K2b's along ``fetch_cuda.rows_plan``; both are held bit for bit
 against the plain versions, with every output element written once.
+K1's bf16 form at N=2048: the register-A step (``bf16(Y * R_b)`` packed
+from the forward accumulators' fragments straight into wgmma's A
+fragments) is held against the ``[16, N2]`` product, and the persistent
+walk (``acquire_cuda.persistent_walk``, its constants read from the
+kernel's source) against every frame once.
 """
 
 import re
@@ -30,11 +35,17 @@ torch = pytest.importorskip("torch")
 from gr4_packet_modem_tpu_torch.ops.acquire_cuda import (  # noqa: E402
     KERNEL_FFT_SIZES,
     POINTS,
+    WG_FRAMES,
+    WG_GROUPS,
+    WGMMA_FFT_SIZES,
+    fragment_index,
     fused_best_power_plain,
     kernel_passes,
     kernel_plan,
     kernel_positions,
+    persistent_walk,
     replica_table,
+    replica_table_bf16,
 )
 from gr4_packet_modem_tpu_torch.ops import fetch_cuda, ldpc, ldpc_cuda  # noqa: E402
 from gr4_packet_modem_tpu_torch.ops.matched_cuda import matched_filter_plain  # noqa: E402
@@ -432,3 +443,97 @@ def test_k2_plan_constants_are_the_kernels():
     src = (Path(fetch_cuda.__file__).parents[1] / "csrc" / "fetch.cu").read_text()
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert consts == {"kThreads": str(fetch_cuda.THREADS), "kRun": str(fetch_cuda.RUN)}
+
+
+# ------------------------------------------------- K1's bf16 form (wgmma)
+
+
+def _pack(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """Two float32 arrays rounded to bf16 into one word each (cvt.rn
+    .bf16x2.f32: ``lo`` in the low half)."""
+    bits = torch.from_numpy(np.stack([lo, hi])).to(torch.bfloat16).view(torch.int16).numpy()
+    bits = bits.view(np.uint16).astype(np.uint32)
+    return bits[0] | (bits[1] << 16)
+
+
+def register_a_model(y: np.ndarray, table: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """csrc/correlate_bf16.cu's register-A step for one frame: ``y`` the
+    forward spectrum ``[16, N2]`` (complex64, ``[k1, k2]``) as the
+    accumulator fragments hold it (``fragment_index``), ``table`` one bin's
+    replica fragments (``replica_table_bf16(...)[b]``, ``[N2/8, 2, 32,
+    4]``). For k-step ks and lane ``4 g + q`` the words ``2 t``, ``2 t +
+    1`` (t = 0, 1) pack n-tile ``2 ks + t``'s values (0, 1) and (2, 3) of
+    ``P = Y * R_b`` rounded to bf16; returns the words read back through
+    the m16k16 A fragment layout (word 0 row g, columns 2 q, + 1; word 1
+    row g + 8; words 2, 3 the same at columns 2 q + 8, + 9) as float32
+    ``[16, N2]`` planes (re, im)."""
+    n2 = y.shape[1]
+    idx = fragment_index(16 * n2)
+    frag = y.T.ravel()[idx]  # the spectrum by k1 + 16 k2, at the fragments
+    yr, yi = frag.real.astype(np.float32), frag.imag.astype(np.float32)
+    rr, ri = table[:, 0], table[:, 1]
+    p_r, p_i = yr * rr - yi * ri, yr * ri + yi * rr  # [N2/8, 32, 4]
+    out = np.zeros((2, 16, n2), np.float32)
+    lane = np.arange(32)
+    g, q = lane >> 2, lane & 3
+    for part, v in enumerate((p_r, p_i)):
+        for ks in range(n2 // 16):
+            words = []
+            for t in range(2):
+                nt = 2 * ks + t
+                words += [_pack(v[nt, :, 0], v[nt, :, 1]), _pack(v[nt, :, 2], v[nt, :, 3])]
+            for w, (row, col) in enumerate([(g, 2 * q), (g + 8, 2 * q), (g, 2 * q + 8), (g + 8, 2 * q + 8)]):
+                for half in range(2):
+                    vals = ((words[w] >> (16 * half)) & 0xFFFF) << 16
+                    out[part, row, 16 * ks + col + half] = vals.astype(np.uint32).view(np.float32)
+    return out[0], out[1]
+
+
+@pytest.mark.parametrize("n", WGMMA_FFT_SIZES)
+def test_k1_bf16_register_a_model(n):
+    """P computed on Y's accumulator fragments and packed into A fragments
+    is ``bf16(Y * R_b)`` in the ``[16, N2]`` layout, every word once."""
+    n2 = n // 16
+    rng = np.random.default_rng(n)
+    y = (rng.standard_normal((16, n2)) + 1j * rng.standard_normal((16, n2))).astype(np.complex64)
+    rf = rng.standard_normal((2, 3, n)).astype(np.float32)
+    table = replica_table_bf16(torch.from_numpy(rf[0]), torch.from_numpy(rf[1]), n).numpy()
+    for b in range(3):
+        got_r, got_i = register_a_model(y, table[b])
+        # R_b[k1, k2] = rf[b, k1 + 16 k2]; P in float32 as the plain version
+        rr, ri = (rf[i, b].reshape(n2, 16).T for i in range(2))
+        for got, p in ((got_r, y.real * rr - y.imag * ri), (got_i, y.real * ri + y.imag * rr)):
+            want = torch.from_numpy(np.ascontiguousarray(p)).to(torch.bfloat16).float().numpy()
+            np.testing.assert_array_equal(got, want)
+
+
+# the H100's SMs at one resident block each (the kernel's shared memory)
+H100_RESIDENT = 132
+
+
+@pytest.mark.parametrize("fpad", [1, 3, 5, 4 * 9 + 3, 8 * H100_RESIDENT - 1, 8 * H100_RESIDENT + 3,
+                                  4 * 2 * 8 * H100_RESIDENT + 7, 20480])
+def test_k1_bf16_persistent_walk_covers_every_frame(fpad):
+    """Every frame is owned by exactly one warp at one step of the walk, no
+    more blocks launch than are resident, and every block but a ragged last
+    wave's has work."""
+    walk = persistent_walk(fpad, H100_RESIDENT)
+    blocks, groups, steps, frames = walk.shape
+    assert (groups, frames) == (WG_GROUPS, WG_FRAMES) and blocks <= H100_RESIDENT
+    owned = walk[walk >= 0]
+    np.testing.assert_array_equal(np.sort(owned), np.arange(fpad))
+    assert (walk[:, 0, 0, 0] >= 0).all()  # no block launched without a frame
+    if fpad > WG_FRAMES * WG_GROUPS * H100_RESIDENT:
+        assert blocks == H100_RESIDENT and steps > 1
+
+
+def test_k1_bf16_walk_constants_are_the_kernels():
+    """The walk's warpgroups a block and frames a warpgroup, and the size it
+    serves, are csrc/correlate_bf16.cu's."""
+    src = (Path(fetch_cuda.__file__).parents[1] / "csrc" / "correlate_bf16.cu").read_text()
+    wg = src[src.index("namespace wg {"):src.index("}  // namespace wg")]
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", wg))
+    assert consts["kGroups"] == str(WG_GROUPS) and consts["kFrames"] == str(WG_FRAMES)
+    assert [16 * int(consts["kN2"])] == list(WGMMA_FFT_SIZES)
+    assert "const int groups = (fpad + kFrames - 1) / kFrames;" in src
+    assert "grp = blockIdx.x * kGroups + (warp >> 2); grp < groups; grp += gridDim.x * kGroups" in src
