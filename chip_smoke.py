@@ -8,8 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: compile the CUDA kernels (``gr4_packet_modem_tpu_torch/csrc``)
    with nvcc, one process per source, into ``build/kernels/``, and beside
    them, in parallel, the probes: ``csrc/probe/chain.cu`` (chain latency
-   and an empty kernel) and ``csrc/probe/fetch_planes.cu`` (K2 as it was on
-   float32 planes);
+   and an empty kernel), ``csrc/probe/fetch_planes.cu`` (K2 as it was on
+   float32 planes) and ``csrc/probe/correlate_bf16_mma.cu`` (K1's bf16
+   form at N=4096 and 8192 as it was before its Hopper redesign);
 3. kernels: hold each kernel against its plain PyTorch version on the card
    at the receive chain's shapes (K2, K2b, K4 and K5 bit for bit); time the
    kernel, its plain version and, where one PyTorch call computes the same
@@ -117,27 +118,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    equal to the port's CPU run on the same samples. K4 at [2, 262,156]
    bit for bit against two launches chained through its loop state and,
    on its first 4,096 symbols, against the plain loop, timed beside its
-   chain floor; the 65,535-byte TX within 1e-5 of the CPU; the symbol
+   chain floor; K4 the same at u16_16k's [4, 65,552] (the first 4,096
+   symbols, its time, chain floor and plain time); the 65,535-byte TX
+   within 1e-5 of the CPU; the symbol
    timing sweep of tests/test_symbol_timing.py (nine delays across +-0.5
    sample, and -0.45 with a CFO of 0.006) held to the JAX test's bounds;
 15. backends: the acquisition backends ``fused_bf16``, ``conv`` and
    ``conv_bf16``. K1's bf16 form (``csrc/correlate_bf16.cu``) against its
-   plain version at the bench shape and at N=4096 and 8192 on two
-   channels (every best power within 2e-2 of itself plus 1e-4 of the
-   largest; every best bin equal where the plain version's best bin leads
-   its second by more than 5 % and by more than 2e-4 of the largest),
-   timed in turns with the float32 K1, with its bound's three terms
-   (bytes, float32 operations, bf16 tensor-core operations at 989
-   TFLOP/s), its registers, spills, shared memory, resident blocks and
-   frames in flight an SM at each size, and the HGMMA instructions in its
-   SASS (``cuobjdump``; at N=2048 there must be some); ``bank_step`` of
-   the bench bank at group 0 with each of the
-   three backends, every packet byte-exact and the fused backend's
-   detections, ``correlate_bf16`` launched on the ``fused_bf16`` path and
-   neither K1 on the conv paths; ``bench`` at the JAX records'
-   ``default_vv_bf16`` and ``ch64_g16_bf16`` configurations
-   (``decoded_packet_frac`` 1.0, the gates holding); the syncword program
-   at 4 bins with all five backends.
+   plain version at the bench shape (every best power within 2e-2 of
+   itself plus 1e-4 of the largest; every best bin equal where the plain
+   version's best bin leads its second by more than 5 % and by more than
+   2e-4 of the largest), timed in turns with the float32 K1, with its
+   bound's three terms (bytes, float32 operations, bf16 tensor-core
+   operations at 989 TFLOP/s), its registers, spills, shared memory,
+   resident blocks and frames in flight an SM at each size, and the HGMMA
+   instructions in its SASS (``cuobjdump``; each of its three kernels must
+   hold some). At N=4096 and 8192 on the bench bank as a Receiver with
+   that ``acquisition_fft_size`` pads it (10,240 and 5,120 frames): the
+   streaming kernel and its earlier mma.sync design
+   (``csrc/probe/correlate_bf16_mma.cu``, built beside the probes in
+   phase 2) under the same gate, then timed in turns with each other and
+   the float32 K1, each with its plain version and bound. ``bank_step`` of
+   the bench bank at group 0 with each of the three backends, every packet
+   byte-exact and the fused backend's detections, ``correlate_bf16``
+   launched on the ``fused_bf16`` path and neither K1 on the conv paths;
+   the bench bank at ``acquisition_fft_size`` 4096 and 8192 with fused and
+   fused_bf16, every packet byte-exact, the two with equal detections
+   inside the capture (past its end, in the zero padding, each form
+   detects its own rounding error and none decodes: counted; where the bf16
+   form's such events outnumber a channel's free slots its overflow flag
+   is counted, not failed on), the stage
+   split and peak memory, and the one K1 form launched; ``bench`` at
+   the JAX records' ``default_vv_bf16`` and ``ch64_g16_bf16``
+   configurations (``decoded_packet_frac`` 1.0, the gates holding); the
+   syncword program at 4 bins with all five backends.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; each path of the receiver with fused acquisition must have
@@ -218,6 +232,17 @@ def bound(nbytes: float, ops: float, tc_ops: float = 0.0) -> tuple[float, str]:
     t = bound_terms(nbytes, ops, tc_ops)
     tb, to = t["bytes"], max(t["f32"], t["bf16_tc"])
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def k1_work(fpad: int, s: int, n: int, nb: int) -> tuple[float, float]:
+    """(bytes, float32 operations) of the float32 K1 on ``fpad`` frames: the
+    frame views read once (2 planes, FPAD + 1 rows), the replica table
+    once, both outputs written once; a frame's one forward and nb inverse
+    transforms at the split-radix count, 4 N log2 N - 6 N + 8 real
+    operations each, then product, power and max, 10 operations a point and
+    bin."""
+    return (2 * (fpad + 1) * s * 4 + nb * n * 8 + fpad * n * 8,
+            fpad * ((1 + nb) * (4 * n * np.log2(n) - 6 * n + 8) + nb * n * 10))
 
 
 def event_ms(torch, fn, reps: int = 10) -> float:
@@ -420,7 +445,10 @@ def build_probe(name: str):
 
     P, I, I64, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib = _build.build_single(_build.CSRC / "probe" / f"{name}.cu")
-    if name == "chain":
+    if name == "correlate_bf16_mma":
+        # ar, ai, br, bi, rep, w2c, small, tw, best_pow, best_bin, fpad, s, nb, log2n, stream
+        lib.pm_correlate_bf16_mma.argtypes = [P] * 10 + [I, I, I, I, P]
+    elif name == "chain":
         # cycles, sink, steps, offset, stream
         lib.pm_costas_chain.argtypes = [P, P, I, I, P]
         # cycles, sink, llrs, chk_vars, var_edges, m, dmax, n, vdeg, iters, alpha, stream
@@ -666,11 +694,7 @@ def _kernel_checks(torch, card: str, probes: dict) -> dict:
             f"kernel {k2['ms']:.4f}, plain {p2:.4f} ms")
         k = mean_timed(k1, k2)
         fpad, nb = ar.shape[0], a.num_bins
-        nbytes = 2 * (fpad + 1) * s * 4 + nb * n * 8 + fpad * n * 8
-        # a frame: one forward and nb inverse transforms at the split-radix
-        # count, 4 N log2 N - 6 N + 8 real operations each; then product,
-        # power and max, 10 operations a point and bin
-        ops = fpad * ((1 + nb) * (4 * n * np.log2(n) - 6 * n + 8) + nb * n * 10)
+        nbytes, ops = k1_work(fpad, s, n, nb)
         record("correlate", f"C={c} FPAD={fpad} S={s} {label} nb={nb}", err, k, (p1 + p2) / 2,
                None, nbytes, ops, label == "N=2048")
         del x, ar, ai, br, bi, args
@@ -789,11 +813,14 @@ def _kernel_checks(torch, card: str, probes: dict) -> dict:
 # ------------------------------------------------------------------ slice
 
 
-def bank_run(torch, card: str, rx, x, expected, label: str, group: int = 0):
+def bank_run(torch, card: str, rx, x, expected, label: str, group: int = 0, overflow_ok: bool = False):
     """One ``bank_step(x, group)`` with the launch counts set to 0 just
-    before it and read just after; the decode gate; then the rate, the
-    peak device memory and, for one batch (``group=0``), the split by
-    stage. Returns the numbers and the step's ``(det, res, keep)``."""
+    before it and read just after; the decode gate (no channel's
+    detections overflowing its slots, unless ``overflow_ok``: then the
+    overflowing channels are counted, and the caller holds the detections
+    that matter); then the rate, the peak device memory and, for one batch
+    (``group=0``), the split by stage. Returns the numbers and the step's
+    ``(det, res, keep)``."""
     from gr4_packet_modem_tpu_torch.ops import _build
 
     channels, block = x.shape[0], x.shape[1] - rx.front_pad - rx.pad_tail()
@@ -805,7 +832,8 @@ def bank_run(torch, card: str, rx, x, expected, label: str, group: int = 0):
     peak = torch.cuda.max_memory_allocated()
     log(f"  {label}: launches in one bank_step: {launches}")
 
-    check(not bool(det.overflow), f"{label}: detections overflowed the slots")
+    overflowed = int(det.overflow.sum())
+    check(overflow_ok or not overflowed, f"{label}: detections overflowed the slots")
     acc = res.accepted.view(channels, -1).cpu().numpy()
     lens = res.lengths.view(channels, -1).cpu().numpy()
     data = res.data.view(channels, acc.shape[1], -1).cpu().numpy()
@@ -849,8 +877,10 @@ def bank_run(torch, card: str, rx, x, expected, label: str, group: int = 0):
         + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()) + f"  [{card}]")
     log(f"  {label}: rate {rate:.4e} samples/s ({channels} ch x {block} samples per step), "
         f"group {group}  [{card}]")
+    if overflowed:
+        log(f"  {label}: {overflowed} channel(s) with more detection events than slots")
     return {"launches": launches, "stages_ms": stages, "rate_sps": rate, "group": group,
-            "peak_bytes": peak, "packets": int(acc.sum())}, (det, res, keep)
+            "peak_bytes": peak, "packets": int(acc.sum()), "overflowed": overflowed}, (det, res, keep)
 
 
 def same_rows(torch, a, b, label: str) -> None:
@@ -1934,8 +1964,7 @@ def envelope_work(rx, xp) -> list:
     chunk = rx._extraction_chunks(syms)[0]
     r = sps * (chunk - 1) + kt
     work = [
-        ("acquire", "correlate", (2 * (fpad + 1) * s * 4 + nb * n * 8 + fpad * n * 8,
-                                  fpad * ((1 + nb) * (4 * n * np.log2(n) - 6 * n + 8) + nb * n * 10))),
+        ("acquire", "correlate", k1_work(fpad, s, n, nb)),
         ("payloads", "fetch", (2 * (2 * d * r * 4) + d * 8, 0)),
         ("payloads", "matched", (2 * d * r * 4 + d * kt * 4 + 2 * d * chunk * 4, 2 * 2 * d * chunk * kt)),
     ]
@@ -2147,6 +2176,32 @@ def envelope_phase(torch, card: str, dev, probes: dict) -> dict:
         f"{plain_head_ms:.4f} ms  [{card}]")
     del sym, ko, o1, o2, po, ho, head_sym
 
+    # K4 at u16_16k's Costas payload pass (four slots of 65,552 symbols):
+    # alone, against its chain floor, and on its first 4,096 symbols beside
+    # the plain loop, bit for bit
+    b16, s16 = ENVELOPE_CASES["u16_16k"]["detections"], 4 * (16384 + 4)
+    sym, ph0, fr0 = (torch.from_numpy(a).to(dev) for a in costas_symbols(b16, s16, offset, seed=16384))
+    head_sym = sym[:, :head].contiguous()
+    po, pph, pfr = costas_track_plain(head_sym, ph0, fr0, offset=offset)
+    ho, hph, hfr = costas_track(head_sym, ph0, fr0, offset=offset)
+    check(torch.equal(ho, po) and torch.equal(hph, pph) and torch.equal(hfr, pfr),
+          f"costas B={b16} S={s16}: the first {head} symbols differ from the plain loop")
+    k4, k4_host = loop_ms(torch, lambda: costas_track(sym, ph0, fr0, offset=offset), reps=5)
+    head_ms, _ = loop_ms(torch, lambda: costas_track(head_sym, ph0, fr0, offset=offset))
+    plain_head_ms = event_ms(torch, lambda: costas_track_plain(head_sym, ph0, fr0, offset=offset), reps=1)
+    floor = chain_floor(torch, probes["chain"], "pm_costas_chain", s16, offset)
+    bms, by = bound(2 * b16 * s16 * 8 + 4 * b16 * 4, b16 * s16 * (15 + 40))
+    out["costas_16k"] = {"shape": f"B={b16} S={s16} offset={offset}", "ms": k4, "host_ms": k4_host,
+                         "chain_floor_ms": floor["ms"], "chain_cycles": floor["cycles"],
+                         "sm_mhz": floor["sm_mhz"], "bound_ms": bms, "bound_by": by,
+                         "plain_symbols": head, "head_ms": head_ms, "plain_head_ms": plain_head_ms}
+    log(f"  costas B={b16} S={s16} offset={offset}: the first {head} symbols equal to the plain loop; "
+        f"{k4:.4f} ms (CUDA events, 5 calls) against its chain floor {floor['ms']:.4f} ms ({floor['cycles']} "
+        f"cycles at {floor['sm_mhz']:.0f} MHz, {100 * floor['ms'] / k4:.1f} % of it), bound {bms:.4f} ms "
+        f"({by}); on its first {head} symbols {head_ms:.4f} ms against the plain loop's "
+        f"{plain_head_ms:.4f} ms  [{card}]")
+    del sym, po, ho, head_sym
+
     # the transmitter at 65,535 bytes on the card against CPU tensors
     pays = [np.random.default_rng(ENVELOPE_CASES["u16_max"]["seed"]).integers(0, 256, 65535, dtype=np.uint8)]
     got, want = (Transmitter(TxConfig(max_payload_len=65535), d).modulate_bursts(
@@ -2259,48 +2314,169 @@ def bf16_work(fpad: int, s: int, n: int, nb: int) -> tuple[float, float, float]:
     return nbytes, f32, tc
 
 
-def bf16_kernel_check(torch, card: str, label: str, a, x) -> dict:
-    """K1's bf16 form against its plain version on the acquirer ``a``'s
-    frames of the padded bank ``x``: every best power within 2e-2 of itself
-    plus 1e-4 of the largest, every best bin equal where the plain
-    version's best bin beats its second best by more than 5 %. Returns the
-    largest deviations and the frame views."""
-    from gr4_packet_modem_tpu_torch.ops.acquire_cuda import bf16_bin_powers, fused_best_power
+def mma_fragment_table(n: int) -> np.ndarray:
+    """W2c (``acquire_cuda.dft_tables(n)["w2c"]``) rounded to bf16 as
+    mma.m16n8k16's B fragments, the table of K1's bf16 form before its
+    Hopper redesign (``csrc/probe/correlate_bf16_mma.cu``): int32 ``[N2/8,
+    N2/16, 32, 4]``, for n-tile ``nt``, k-step ``ks`` and lane ``4 g + q``
+    the words (re b0, re b1, im b0, im b1), where b0 holds rows ``16 ks + 2
+    q``, ``+ 1`` and b1 rows ``16 ks + 2 q + 8``, ``+ 9`` of column ``8 nt +
+    g`` (the lower row in the low half)."""
+    from gr4_packet_modem_tpu_torch.ops.acquire_cuda import _bf16_bits, dft_tables
 
-    n, s = a.config.fft_size, a.stride
-    ar, ai, br, bi, nf, rows = a._frames_planes(x)
-    args = (ar, ai, br, bi, a.replica_fft_r, a.replica_fft_i, n)
-    kp, kb = fused_best_power(*args, table=a.replica_table, bf16=True)
-    torch.cuda.synchronize()
+    t = dft_tables(n)["w2c"]
+    k, m = t.shape
+    lane = np.arange(32)
+    col = 8 * np.arange(m // 8)[:, None, None] + (lane >> 2)
+    row = 16 * np.arange(k // 16)[None, :, None] + 2 * (lane & 3)
+    words = []
+    for part in (t.real, t.imag):
+        bits = _bf16_bits(part).astype(np.uint32)
+        for r in (row, row + 8):
+            words.append(bits[r, col] | (bits[r + 1, col] << 16))
+    return np.stack(words, axis=-1).view(np.int32)
+
+
+def mma_bf16_call(torch, probe, args):
+    """A caller of the earlier bf16 kernel (``csrc/probe/correlate_bf16_
+    mma.cu``) on the frame views and replica planes ``args`` (as
+    ``fused_best_power`` takes them), its tables built once: returns a
+    function of no arguments giving ``(best_pow, best_bin)``."""
+    from gr4_packet_modem_tpu_torch.ops.acquire_cuda import bf16_tables, fragment_index
+
+    ar, ai, br, bi, rfr, rfi, n = args
+    dev = ar.device
+    idx = torch.from_numpy(fragment_index(n)).to(dev)
+    rep = torch.stack([rfr[:, idx], rfi[:, idx]], dim=2).contiguous()
+    w2c = torch.from_numpy(mma_fragment_table(n)).to(dev)
+    t = bf16_tables(n)
+    small, tw = (torch.from_numpy(t[k]).to(dev) for k in ("small", "tw"))
+    fpad, s = ar.shape
+    nb = rfr.shape[0]
+    out_pow = ar.new_empty(fpad, n)
+    out_bin = torch.empty(fpad, n, dtype=torch.int32, device=dev)
+
+    def call():
+        status = probe.pm_correlate_bf16_mma(
+            ar.data_ptr(), ai.data_ptr(), br.data_ptr(), bi.data_ptr(), rep.data_ptr(), w2c.data_ptr(),
+            small.data_ptr(), tw.data_ptr(), out_pow.data_ptr(), out_bin.data_ptr(), fpad, s, nb,
+            n.bit_length() - 1, torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"pm_correlate_bf16_mma: CUDA error {status}")
+        return out_pow, out_bin
+
+    return call
+
+
+def bf16_gate(torch, card: str, label: str, args, outputs: dict) -> dict:
+    """Outputs ``(best_pow, best_bin)`` of K1's bf16 form (by design name)
+    on the frame views and replica planes ``args`` against its plain
+    version: every best power within 2e-2 of itself plus 1e-4 of the
+    largest, every best bin equal where the plain version's best bin beats
+    its second best by more than 5 % and by more than 2e-4 of the largest.
+    Returns each design's largest deviations."""
+    from gr4_packet_modem_tpu_torch.ops.acquire_cuda import bf16_bin_powers
+
     # the plain version's bin powers: its best (and bin) and second best
     powers = bf16_bin_powers(*args)
     top2, top_bin = powers.topk(min(2, powers.shape[0]), dim=0)
     del powers
     pp, pb = top2[0], top_bin[0].to(torch.int32)
-    err = (kp - pp).abs()
     scale = pp.max().item()
     lim = 2e-2 * pp + 1e-4 * scale
-    worst = (err / lim).max().item()
-    rel = (err / pp.clamp(min=1e-30)).max().item()
     # a clear best bin: ahead of the second by more than 5 % of itself and
     # by more than twice best_pow's absolute tolerance (1e-4 x the largest),
     # the most two bins' errors can close
     ahead = top2[0] > 1.05 * top2[-1]
     clear = ahead & (top2[0] - top2[-1] > 2e-4 * scale)
-    same = kb == pb
-    flips = ahead & ~same
-    flip_top = (top2[0][flips].max().item() / scale) if bool(flips.any()) else 0.0
-    log(f"  correlate_bf16 {label}: FPAD={ar.shape[0]} S={s} nb={a.num_bins}: max |d best_pow| "
-        f"{err.max().item():.3e} (largest {scale:.3e}), max relative {rel:.3e}, the largest "
-        f"deviation {100 * worst:.1f} % of its limit; best_bin equal on {same.float().mean().item():.6f} "
-        f"of all samples and on all {int(clear.sum())} samples with a clear best bin "
-        f"({100 * clear.float().mean().item():.1f} %); of the {int(ahead.sum())} whose best bin leads "
-        f"by 5 %, {int(flips.sum())} differ, each at most {flip_top:.3e} of the largest  [{card}]")
-    check(worst <= 1.0, f"correlate_bf16 {label}: best_pow beyond 2e-2 x itself + 1e-4 x max")
-    check(bool(same[clear].all()), f"correlate_bf16 {label}: best_bin differs where the best bin is clear")
-    return {"max_abs_err": err.max().item(), "max_rel_err": rel, "worst_of_limit": worst,
-            "bin_equal_frac": same.float().mean().item(), "flips_5pct": int(flips.sum()),
-            "flip_top_of_max": flip_top, "args": args}
+    res = {}
+    for design, (kp, kb) in outputs.items():
+        err = (kp - pp).abs()
+        worst = (err / lim).max().item()
+        rel = (err / pp.clamp(min=1e-30)).max().item()
+        same = kb == pb
+        flips = ahead & ~same
+        flip_top = (top2[0][flips].max().item() / scale) if bool(flips.any()) else 0.0
+        log(f"  correlate_bf16 {label} ({design}): FPAD={pp.shape[0]} S={args[0].shape[1]} "
+            f"nb={args[4].shape[0]}: max |d best_pow| {err.max().item():.3e} (largest {scale:.3e}), max "
+            f"relative {rel:.3e}, the largest deviation {100 * worst:.1f} % of its limit; best_bin equal on "
+            f"{same.float().mean().item():.6f} of all samples and on all {int(clear.sum())} samples with a "
+            f"clear best bin ({100 * clear.float().mean().item():.1f} %); of the {int(ahead.sum())} whose best "
+            f"bin leads by 5 %, {int(flips.sum())} differ, each at most {flip_top:.3e} of the largest  [{card}]")
+        check(worst <= 1.0, f"correlate_bf16 {label} ({design}): best_pow beyond 2e-2 x itself + 1e-4 x max")
+        check(bool(same[clear].all()), f"correlate_bf16 {label} ({design}): best_bin differs where the best bin is clear")
+        res[design] = {"max_abs_err": err.max().item(), "max_rel_err": rel, "worst_of_limit": worst,
+                       "bin_equal_frac": same.float().mean().item(), "flips_5pct": int(flips.sum()),
+                       "flip_top_of_max": flip_top}
+    return res
+
+
+def bf16_kernel_check(torch, card: str, label: str, a, x) -> dict:
+    """K1's bf16 form against its plain version (``bf16_gate``) on the
+    acquirer ``a``'s frames of the padded bank ``x``. Returns the largest
+    deviations and the frame views."""
+    from gr4_packet_modem_tpu_torch.ops.acquire_cuda import fused_best_power
+
+    n = a.config.fft_size
+    ar, ai, br, bi, nf, rows = a._frames_planes(x)
+    args = (ar, ai, br, bi, a.replica_fft_r, a.replica_fft_i, n)
+    out = fused_best_power(*args, table=a.replica_table, bf16=True)
+    torch.cuda.synchronize()
+    res = bf16_gate(torch, card, label, args, {"wgmma": out})["wgmma"]
+    return {**res, "args": args}
+
+
+def bf16_size_report(torch, card: str, a, x, probe, launch_floor: float) -> dict:
+    """K1's bf16 form at the acquirer ``a``'s size (4096 or 8192) on its
+    frames of the padded bank ``x``: the streaming kernel and the earlier
+    mma.sync design (``csrc/probe/correlate_bf16_mma.cu``) against the
+    plain version (``bf16_gate``); then timed in turns with each other and
+    the float32 K1 (streaming, mma.sync, K1, K1, mma.sync, streaming), each
+    with its host time a call, its plain version's time and its bound (the
+    bf16 form's three terms, K1's split-radix count)."""
+    from gr4_packet_modem_tpu_torch.ops.acquire_cuda import (
+        fused_best_power, fused_best_power_bf16_plain, fused_best_power_plain, replica_table,
+    )
+
+    n, s, nb = a.config.fft_size, a.stride, a.num_bins
+    ar, ai, br, bi, nf, rows = a._frames_planes(x)
+    fpad = ar.shape[0]
+    args = (ar, ai, br, bi, a.replica_fft_r, a.replica_fft_i, n)
+    f32_table = replica_table(a.replica_fft_r, a.replica_fft_i, n)
+
+    def new():
+        return fused_best_power(*args, table=a.replica_table, bf16=True)
+
+    def f32():
+        return fused_best_power(*args, table=f32_table)
+
+    old = mma_bf16_call(torch, probe, args)
+    gate = bf16_gate(torch, card, f"N={n}", args, {"wgmma": new(), "mma.sync": old()})
+    turns = [timed(torch, fn) for fn in (new, old, f32, f32, old, new)]
+    k, o, f = mean_timed(turns[0], turns[5]), mean_timed(turns[1], turns[4]), mean_timed(turns[2], turns[3])
+    plain = timed(torch, lambda: fused_best_power_bf16_plain(*args), reps=3)["ms"]
+    f32_plain = timed(torch, lambda: fused_best_power_plain(*args), reps=3)["ms"]
+    work = bf16_work(fpad, s, n, nb)
+    terms = bound_terms(*work)
+    bms, by = bound(*work)
+    f32_bms, f32_by = bound(*k1_work(fpad, s, n, nb))
+    shape = f"C={x.shape[0]} FPAD={fpad} S={s} N={n} nb={nb}"
+    log(f"  correlate_bf16 {shape} in turns (wgmma, mma.sync, K1, K1, mma.sync, wgmma): "
+        + ", ".join(f"{t['ms']:.4f}" for t in turns) + " ms (" + ", ".join(t["timer"] for t in turns)
+        + "); CUDA events around 10 calls: " + ", ".join(f"{t['loop_ms']:.4f}" for t in turns)
+        + f" ms; wgmma {k['ms']:.4f} ms (host {k['host_ms']:.4f} "
+        f"ms a call), {o['ms'] / k['ms']:.3f} x faster than mma.sync ({o['ms']:.4f}), {k['ms'] / f['ms']:.3f} x "
+        f"K1 ({f['ms']:.4f}, host {f['host_ms']:.4f}); plain {plain:.4f} ms; bound {bms:.4f} ms ({by}: bytes "
+        f"{terms['bytes']:.4f}, float32 {terms['f32']:.4f}, bf16 tensor cores {terms['bf16_tc']:.4f}; "
+        f"{100 * bms / k['ms']:.1f} % of it; mma.sync {100 * bms / o['ms']:.1f} %); K1's bound "
+        f"{f32_bms:.4f} ms ({f32_by}, {100 * f32_bms / f['ms']:.1f} % of it), its plain {f32_plain:.4f} ms; "
+        f"launch floor {launch_floor:.4f} ms  [{card}]")
+    return {"shape": shape, "gate": gate, "turns_ms": [t["ms"] for t in turns],
+            "turns_loop_ms": [t["loop_ms"] for t in turns],
+            "wgmma": {**k, "bound_ms": bms, "bound_by": by, "bound_terms_ms": terms, "plain_ms": plain,
+                      "max_abs_err": gate["wgmma"]["max_abs_err"]},
+            "mma_sync": {**o, "max_abs_err": gate["mma.sync"]["max_abs_err"]},
+            "f32": {**f, "bound_ms": f32_bms, "bound_by": f32_by, "plain_ms": f32_plain},
+            "launch_floor_ms": launch_floor}
 
 
 def bf16_kernel_report(torch, card: str) -> dict:
@@ -2308,7 +2484,8 @@ def bf16_kernel_report(torch, card: str) -> dict:
     bytes a thread, shared memory and threads a block, resident blocks and
     frames in flight an SM), the ptxas lines of its build, and the count of
     HGMMA (wgmma) and HMMA (mma.sync) instructions in each of its kernels'
-    SASS (cuobjdump on the built library)."""
+    SASS (cuobjdump on the built library): the three kernels (N=2048, and
+    the streaming one at 4096 and 8192) must each hold HGMMA."""
     import re
 
     from gr4_packet_modem_tpu_torch.ops import _build
@@ -2346,39 +2523,42 @@ def bf16_kernel_report(torch, card: str) -> dict:
             for op in counts[fn]:
                 counts[fn][op] += bool(re.search(rf"\b{op}\.", line))
     for name, c in counts.items():
-        short = "correlate_bf16_wgmma" if "wgmma" in name else re.sub(r".*(correlate_bf16_mma\w*?Li\d+).*", r"\1", name)
+        short = re.sub(r".*(correlate_bf16_(wgmma|stream\w*?Li\d+)).*", r"\1", name)
         log(f"  SASS {short}: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA")
-    wgmma = [c for name, c in counts.items() if "wgmma" in name]
-    check(len(wgmma) == 1 and wgmma[0]["HGMMA"] > 0, f"correlate_bf16 at N=2048 has no HGMMA in its SASS: {counts}")
+    kinds = sorted(re.sub(r".*correlate_bf16_(wgmma|stream\w*?Li\d+).*", r"\1", name) for name in counts)
+    check(kinds == ["streamILi256", "streamILi512", "wgmma"] and all(c["HGMMA"] > 0 for c in counts.values()),
+          f"correlate_bf16: a kernel at N=2048, 4096 or 8192 is missing or has no HGMMA in its SASS: {counts}")
     out["ptxas"] = lines
     out["sass"] = counts
     return out
 
 
-def backends_phase(torch, card: str, dev, launch_floor: float) -> dict:
+def backends_phase(torch, card: str, dev, launch_floor: float, probes: dict) -> dict:
     """The acquisition backends the port once refused: K1's bf16 form
-    against its plain version at the bench shape and at N=4096 and 8192,
-    timed in turns with the float32 K1; ``bank_step`` of the bench bank
-    with fused_bf16, conv and conv_bf16 (group 0), each held to the fused
-    backend's detections and decoding every packet; ``bench`` at the JAX
+    against its plain version at the bench shape, timed in turns with the
+    float32 K1, and at N=4096 and 8192 on the bench bank as a Receiver with
+    that ``acquisition_fft_size`` pads it, beside its earlier mma.sync
+    design (``bf16_size_report``); ``bank_step`` of the bench bank with
+    fused_bf16, conv and conv_bf16 (group 0), each held to the fused
+    backend's detections and decoding every packet, and at N=4096 and 8192
+    with fused and fused_bf16, the two alike; ``bench`` at the JAX
     records' two bf16 configurations; the syncword program with all five
     backends."""
     import importlib
 
     from gr4_packet_modem_tpu_torch.entry import BENCH_BLOCK, BENCH_CHANNELS, BENCH_CONFIG
     from gr4_packet_modem_tpu_torch.models.receiver import Receiver
-    from gr4_packet_modem_tpu_torch.ops.acquire import AcquisitionConfig, SyncwordAcquirer
     from gr4_packet_modem_tpu_torch.ops.acquire_cuda import (
-        fused_best_power, fused_best_power_bf16_plain, replica_table,
+        STREAM_FFT_SIZES, fused_best_power, fused_best_power_bf16_plain, replica_table,
     )
 
     out = {"kernel": bf16_kernel_report(torch, card)}
     gen = torch.Generator(device=dev).manual_seed(4321)
     samples, expected, _ = bench_signal(BENCH_BLOCK, BENCH_CHANNELS)
     rx = Receiver(dataclasses.replace(BENCH_CONFIG, acquisition_backend="fused_bf16"), dev)
-    fp, pt = rx.front_pad, rx.pad_tail()
 
-    def padded(sig, noise):
+    def padded(sig, noise, r=rx):
+        fp, pt = r.front_pad, r.pad_tail()
         x = torch.zeros(sig.shape[0], fp + sig.shape[1] + pt, dtype=torch.complex64, device=dev)
         x[:, fp : fp + sig.shape[1]] = torch.from_numpy(sig).to(dev)
         if noise:
@@ -2417,15 +2597,18 @@ def backends_phase(torch, card: str, dev, launch_floor: float) -> dict:
                              "bound_terms_ms": terms, "launch_floor_ms": launch_floor,
                              "shape": f"C={BENCH_CHANNELS} FPAD={fpad} S={s} N={n} nb={nb}"}
     del x, args
-    for size in (4096, 8192):
-        acq = SyncwordAcquirer(AcquisitionConfig(fft_size=size, backend="fused_bf16"), dev)
-        small = padded(samples[:2, : 1 << 16], 0.05)
-        r = bf16_kernel_check(torch, card, f"N={size}", acq, small)
-        r.pop("args")
+    # (a, b) at N=4096 and 8192: the bench bank as a Receiver with that
+    # acquisition_fft_size pads it, beside the earlier mma.sync design
+    for size in STREAM_FFT_SIZES:
+        rxn = Receiver(dataclasses.replace(BENCH_CONFIG, acquisition_fft_size=size,
+                                           acquisition_backend="fused_bf16"), dev)
+        x = padded(samples, 0.05, rxn)
+        r = bf16_size_report(torch, card, rxn.acquirer, x, probes["correlate_bf16_mma"], launch_floor)
         out[f"correlate_bf16_{size}"] = r
         res = out["correlate_bf16"]
-        res["max_abs_err"] = max(res["max_abs_err"], r["max_abs_err"])
-    _flush.clear()
+        res["max_abs_err"] = max(res["max_abs_err"], r["wgmma"]["max_abs_err"])
+        del rxn, x
+        _flush.clear()
 
     # (c) the bench bank with each new backend, against the fused backend
     x = padded(samples, 0.0)
@@ -2454,6 +2637,51 @@ def backends_phase(torch, card: str, dev, launch_floor: float) -> dict:
     out["bank"] = rows
     out["launches_per_step"] = rows["fused_bf16"]["launches"]["correlate_bf16"]
     del x, ref
+
+    # (c') the bench bank at acquisition_fft_size 4096 and 8192 with both K1
+    # forms: every packet, the same detections, the right K1 launched
+    for size in STREAM_FFT_SIZES:
+        rows, dets = {}, {}
+        for backend in ("fused", "fused_bf16"):
+            rxb = Receiver(dataclasses.replace(BENCH_CONFIG, acquisition_fft_size=size,
+                                               acquisition_backend=backend), dev)
+            x = padded(samples, 0.0, rxb)
+            # the bf16 form's rounding-error events in the zero padding may
+            # outnumber the slots left; the slots go to the strongest events,
+            # and the capture's detections are held to fused's below
+            r, (det, _, _) = bank_run(torch, card, rxb, x, expected, f"{backend} N={size}",
+                                      overflow_ok=backend == "fused_bf16")
+            launches = r["launches"]
+            for k_ in ("fetch", "fetch_rows", "matched", "costas", "ldpc"):
+                check(launches[k_] > 0, f"{backend} N={size}: kernel {k_} was not launched by the bank step")
+            want_k1 = {"correlate": 1, "correlate_bf16": 0} if backend == "fused" else {"correlate": 0, "correlate_bf16": 1}
+            check(all(launches[k_] == v for k_, v in want_k1.items()),
+                  f"{backend} N={size}: K1 launches {launches['correlate']}, its bf16 form {launches['correlate_bf16']}")
+            rows[backend], dets[backend] = r, det
+            del rxb, x
+        # the same (index, bin) detections on every channel inside the
+        # capture (so no slot the bf16 form's extra events took was one of
+        # them); past its end, in the zero padding, both forms detect their
+        # own rounding error (the bf16 form's, as the JAX kernel's in exact
+        # silence: tests/test_torch_acquire_backends.py::
+        # test_silent_tail_detections_equal_jax), and none decodes
+        end = rx.front_pad + BENCH_BLOCK
+        sets = {k: [{(i, b) for i, b, v in zip(d.index.view(BENCH_CHANNELS, -1)[c].tolist(),
+                                                 d.freq_bin.view(BENCH_CHANNELS, -1)[c].tolist(),
+                                                 d.valid.view(BENCH_CHANNELS, -1)[c].tolist()) if v}
+                     for c in range(BENCH_CHANNELS)] for k, d in dets.items()}
+        inside = tail = 0
+        for c in range(BENCH_CHANNELS):
+            sa, sb = sets["fused"][c], sets["fused_bf16"][c]
+            check({d for d in sa if d[0] < end} == {d for d in sb if d[0] < end},
+                  f"N={size} channel {c}: fused_bf16's detections inside the capture differ from fused's")
+            inside += sum(d[0] < end for d in sa)
+            tail += len(sa ^ sb)
+        log(f"  N={size}: fused_bf16's detections equal to fused's on all {inside} inside the capture; "
+            f"{tail} differ in the zero padding past its end ({end}), none decoded")
+        rows["inside_equal"], rows["tail_differ"] = inside, tail
+        out[f"bank_{size}"] = rows
+        del dets
 
     # (d) bench at the two bf16 configurations; (e) the syncword program
     import torch.distributed as dist
@@ -2523,8 +2751,8 @@ def main() -> int:
     from gr4_packet_modem_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        jobs = {name: pool.submit(build_probe, name) for name in ("chain", "fetch_planes")}
+    with ThreadPoolExecutor(4) as pool:
+        jobs = {name: pool.submit(build_probe, name) for name in ("chain", "fetch_planes", "correlate_bf16_mma")}
         path = _build.build()
         probes = {name: job.result() for name, job in jobs.items()}
     _build.library()
@@ -2582,7 +2810,7 @@ def main() -> int:
     # phase 15: the acquisition backends fused_bf16, conv and conv_bf16
     log("backends:")
     t0 = time.perf_counter()
-    backres = backends_phase(torch, card, dev, kres["launch_floor_ms"])
+    backres = backends_phase(torch, card, dev, kres["launch_floor_ms"], probes)
     backres["seconds"] = time.perf_counter() - t0
     log(f"  backends: {backres['seconds']:.1f} s")
     import gr4_packet_modem_tpu_torch.io.zmq_pub  # noqa: F401  (the taps' publisher, no pyzmq here)

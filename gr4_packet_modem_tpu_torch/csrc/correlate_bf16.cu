@@ -32,6 +32,9 @@
 // of bf16 tensor-core work (0.43 ms at 989 TFLOP/s), 1.0 MFLOP of float32
 // radix-16 DFTs (as small_dft runs them) and elementwise work (0.32 ms at
 // 67 TFLOP/s) and 30 KB of device memory traffic (0.19 ms).
+// At N = 4096 and 8192 (the bench bank: 10,240 and 5,120 frames) a frame is
+// 84 and 336 MFLOP of bf16 tensor-core work (0.87 and 1.74 ms), the float32
+// term 0.31 ms at both.
 //
 // Design at N = 2048 (correlate_bf16_wgmma): persistent blocks of two
 // warpgroups, one block an SM, at most as many blocks as the card holds at
@@ -83,11 +86,35 @@
 // What holds it from its bound is each warp's serial chain at two warps a
 // scheduler: the P fragments, the product's latency, the float32 DFTs.
 //
-// Design at N = 4096 and 8192 (correlate_bf16_mma): PR 12's, one warp a
-// frame with mma.sync.m16n8k16: the table (256 KB, 1 MB) exceeds shared
-// memory and is read in mma's fragment order through L1, both products
-// from it (the forward one with kConj), the A operand from a padded shared
-// tile with ldmatrix, the spectrum in shared memory.
+// Design at N = 4096 and 8192 (correlate_bf16_stream): the table (256 KB,
+// 1 MB) and four frames' spectra (128 KB, 256 KB) do not fit in shared
+// memory, so both products read both operands from shared memory
+// (wgmma.m64n32k16, K-major core matrices, no swizzle) and the table is
+// streamed. Persistent blocks of one warpgroup. W2c's first-half columns
+// come in table blocks of 32 columns, each in chunks of 128 rows (16 KB,
+// one cp.async.bulk each, completing on the chunk's full mbarrier) into
+// as many shared-memory stages: once a product's wgmmas are done, thread 0
+// starts the next product's block, so its copy overlaps this product's
+// epilogue, and a product starts on its first chunk while the later ones
+// arrive. (A producer warp feeding a finer ring through empty barriers
+// was slower: its fifth warp cut the registers of two blocks an SM to 168
+// at N = 4096, which spilled and serialized the wgmmas.) The rows k of the
+// table and of every left operand are
+// in the order k' (even k first, then odd), so that the second half of the
+// columns, W2c[k][n + N2/2] = (-1)^k W2c[k][n] (the caveat above), is the
+// same chunks with the odd half of k' negated by scale-a: each chunk feeds
+// both halves' accumulators. The 64 rows of a product (wgmma's M) are four
+// frames' B in the forward product, and four bins' P of one frame in the
+// inverse: the four frames' spectra Y go to a scratch in device memory (a
+// block's 128 or 256 KB, read back from L2), and each group of four bins
+// rounds its P = Y * R_b to bf16 into shared memory once, for all its
+// table blocks. A lane owns a column of U through the warp's exchange tile
+// (twiddle, radix-16 inverse DFT, power); the four bins' powers meet in the
+// tiles, and warp n1 / 4 keeps the first max with the earlier bin groups'
+// in the outputs. A group of 9 bins runs as 12 (three groups of four).
+// Shared memory: the A area (64 or 128 KB), a table block's stages (32 or
+// 64 KB) and the exchange tiles (16 KB): two blocks an SM at N = 4096, one
+// at 8192.
 // No fast math.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,7 +123,6 @@
 namespace {
 
 constexpr int kN1 = 16;    // the small radix
-constexpr int kUld = 40;   // float row stride of the column-exchange tile
 
 // F1 [k1][m1] then W1c [n1][k1], rounded to bf16, as float2 (re, im)
 __constant__ float2 c_small[2 * kN1 * kN1];
@@ -547,282 +573,543 @@ correlate_bf16_wgmma(const float* __restrict__ ar, const float* __restrict__ ai,
   }
 }
 
-// ------------------------------------------- N = 4096, 8192: mma.sync
+// ------------------------------- N = 4096, 8192: wgmma, the table streamed
 
+namespace st {
+constexpr int kRows = 64;        // a product's rows (wgmma's M): four frames or four bins
+constexpr int kCols = 32;        // a table block's columns (wgmma's N)
+constexpr int kChunkK = 128;     // rows (k') of a chunk of the table: eight k-steps
+constexpr int kChunkSteps = kChunkK / 16;
+constexpr int kLbo = 128;        // next 8 rows (k') of a core-matrix column
+constexpr int kChunkSbo = kChunkK / 8 * 128;  // next 8 columns of a chunk
+constexpr int kChunkPlane = kCols * kChunkK * 2;  // bytes of a chunk's part (re, im)
+constexpr int kChunkBytes = 2 * kChunkPlane;
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kFrames = 4;       // frames a group: the forward product's rows
+constexpr int kExch = 2 * kN1 * 32 * 4;  // a warp's column-exchange tile
+}  // namespace st
+
+// The walk and the table's stages at N2 = 256 and 512 (the host's model:
+// ops/acquire_cuda.py::stream_plan). The A area holds the product's left
+// operand, 64 rows (m) x N2 (k') of bf16 a part, K-major core matrices:
+// (m, k') at (m / 8) kASbo + (k' / 8) 128 + (m % 8) 16 + (k' % 8) 2. The
+// stages hold a table block's kChunks chunks, 16 KB each.
 template <int N2>
-struct Plan {
-  static constexpr int kNT = N2 / 8;    // n-tiles of a bulk product
-  static constexpr int kKS = N2 / 16;   // k-steps of a bulk product
-  static constexpr int kGroups = N2 / 32;  // groups of four n-tiles
-  static constexpr int kWarps = N2 == 256 ? 3 : 1;
-  static constexpr int kLd = N2 + 8;    // bf16 row stride of the A tile
-  // a warp's shared memory: the A tile (re, im planes), the column-exchange
-  // tile (re, im), the forward spectrum (fragment order), the running max
-  // and the bin
-  static constexpr int kTile = 2 * kN1 * kLd * 2;
-  static constexpr int kExch = 2 * kN1 * kUld * 4;
-  static constexpr int kSpec = kN1 * N2 * 8;
-  static constexpr int kMax = kN1 * N2 * 4;
-  static constexpr int kBin = kN1 * N2;
-  static constexpr int kWarpBytes = kTile + kExch + kSpec + kMax + kBin;
-  static constexpr int kBytes = kWarps * kWarpBytes;
-  static_assert(kBytes <= 232448, "a block's shared memory");
-  static_assert(kWarpBytes % 16 == 0 && kTile % 16 == 0 && kExch % 16 == 0, "alignment");
+struct Stream {
+  static constexpr int kKS = N2 / 16;                   // k-steps of a product
+  static constexpr int kBlocks = N2 / 2 / st::kCols;    // table blocks: the first half's columns
+  static constexpr int kChunks = N2 / st::kChunkK;      // chunks of a table block
+  static constexpr int kMinBlocks = N2 == 256 ? 2 : 1;  // resident blocks an SM
+  static constexpr int kASbo = N2 / 8 * 128;
+  static constexpr int kAPlane = st::kRows * N2 * 2;
+  static constexpr int kABytes = 2 * kAPlane;
+  static constexpr int kStageBytes = kChunks * st::kChunkBytes;
+  static constexpr int kBytes = kABytes + kStageBytes + 4 * st::kExch;
+  static_assert(kChunks * st::kChunkK == N2 && kBlocks * st::kCols * 2 == N2, "the table's tiling");
+  static_assert(kKS % (2 * st::kChunkSteps) == 0, "the odd half of k' starts at a chunk");
+  static_assert(kBytes + 64 <= (kMinBlocks == 2 ? 115712 : 232448), "a block's shared memory");
 };
 
-// d += a @ b on one m16n8k16 tile: bf16 inputs, float32 accumulation
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(st::kLbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
-// acc[j] = (re, im) accumulator fragments of n-tile 4 g + j of the complex
-// product A @ W (kConj false) or A @ conj(W) (kConj true): A the warp's bf16
-// tile (planes re, im), W the W2c table in fragment order [n-tile][k-step]
-// [lane] of uint4 (re b0, re b1, im b0, im b1), read through L1
-template <int N2, bool kConj>
-__device__ __forceinline__ void bulk_product(float (&acc)[4][2][4], const __nv_bfloat16* tre,
-                                             const __nv_bfloat16* tim, const uint4* tab, int g,
-                                             int lane) {
-  using P = Plan<N2>;
+// d (+)= kScale a @ b on the warpgroup's m64n32k16 tile, both operands from
+// shared memory (descriptors), K-major, float32 accumulation
+template <int kScale>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, %19, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1), "n"(kScale));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_operand(float (&v)[16]) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(v[i])::"memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// spins until the barrier completes its phase of this parity; the loop is
+// inside the asm, so no branch of the compiler's lies between wgmmas
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra LAB_WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// a barrier of the block's one warpgroup
+__device__ __forceinline__ void warpgroup_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(st::kThreads) : "memory");
+}
+// this thread's shared-memory writes made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// k' of the natural row k (k2 or m2): the even rows first, then the odd ones,
+// so that W2c[k][n + N2/2] = (-1)^k W2c[k][n] flips whole k-steps
+template <int N2>
+__device__ __forceinline__ int kprime(int k) {
+  return (k & 1) * (N2 / 2) + (k >> 1);
+}
+
+// thread 0 (on) loads table block tb into the stages, one bulk copy a
+// chunk completing on its full barrier (predicated, not branched)
+template <int N2>
+__device__ __forceinline__ void load_block(uint32_t stages, uint64_t* full,
+                                           const unsigned char* table, int tb, bool on) {
+  using S = Stream<N2>;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[j][0][c] = acc[j][1][c] = 0.0f;
-#pragma unroll 2
-  for (int ks = 0; ks < P::kKS; ++ks) {
-    uint32_t are[4], aim[4], neg[4];
-    load_a(are, tre + 16 * ks, P::kLd, lane);
-    load_a(aim, tim + 16 * ks, P::kLd, lane);
+  for (int c = 0; c < S::kChunks; ++c) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %4, 0;\n"
+        "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%1], %3;\n"
+        "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%2], %3, [%1];\n}\n"
+        ::"r"(stages + c * st::kChunkBytes), "r"(smem_u32(&full[c])),
+        "l"(table + static_cast<int64_t>(tb * S::kChunks + c) * st::kChunkBytes),
+        "r"(st::kChunkBytes), "r"(static_cast<uint32_t>(on))
+        : "memory");
+  }
+}
+
+// The products on the chunks kc0 .. kc1 - 1 of the table block in the
+// stages, their k' in the odd half (kOdd: the second half of the columns
+// negated) or not
+template <int N2, bool kConj, bool kOdd>
+__device__ __forceinline__ void stream_chunks(float (&acc)[2][2][16], uint32_t a_area,
+                                              uint32_t stages, uint64_t* full, uint32_t parity,
+                                              int kc0, int kc1) {
+  using S = Stream<N2>;
+#pragma unroll 1
+  for (int kc = kc0; kc < kc1; ++kc) {
+    mbar_wait(&full[kc], parity);
+    const uint32_t chunk = stages + kc * st::kChunkBytes;
+    uint64_t ar = smem_desc(a_area + 256 * st::kChunkSteps * kc, S::kASbo);
+    uint64_t wr = smem_desc(chunk, st::kChunkSbo);
+    constexpr uint64_t kAi = S::kAPlane >> 4, kWi = st::kChunkPlane >> 4;
+    wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < 4; ++c) neg[c] = (kConj ? are[c] : aim[c]) ^ 0x80008000u;  // exact
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint4 b = __ldg(tab + ((4 * g + j) * P::kKS + ks) * 32 + lane);
+    for (int j = 0; j < st::kChunkSteps; ++j, ar += 16, wr += 16) {
+      const uint64_t ai = ar + kAi, wi = wr + kWi;
+      constexpr int s = kOdd ? -1 : 1;  // the second half's sign
       if constexpr (kConj) {  // re = Ar Wr + Ai Wi, im = Ai Wr - Ar Wi
-        mma(acc[j][0], are, b.x, b.y);
-        mma(acc[j][0], aim, b.z, b.w);
-        mma(acc[j][1], aim, b.x, b.y);
-        mma(acc[j][1], neg, b.z, b.w);
+        wgmma_ss<1>(acc[0][0], ar, wr);
+        wgmma_ss<1>(acc[0][0], ai, wi);
+        wgmma_ss<1>(acc[0][1], ai, wr);
+        wgmma_ss<-1>(acc[0][1], ar, wi);
+        wgmma_ss<s>(acc[1][0], ar, wr);
+        wgmma_ss<s>(acc[1][0], ai, wi);
+        wgmma_ss<s>(acc[1][1], ai, wr);
+        wgmma_ss<-s>(acc[1][1], ar, wi);
       } else {  // re = Ar Wr - Ai Wi, im = Ar Wi + Ai Wr
-        mma(acc[j][0], are, b.x, b.y);
-        mma(acc[j][0], neg, b.z, b.w);
-        mma(acc[j][1], are, b.z, b.w);
-        mma(acc[j][1], aim, b.x, b.y);
+        wgmma_ss<1>(acc[0][0], ar, wr);
+        wgmma_ss<-1>(acc[0][0], ai, wi);
+        wgmma_ss<1>(acc[0][1], ar, wi);
+        wgmma_ss<1>(acc[0][1], ai, wr);
+        wgmma_ss<s>(acc[1][0], ar, wr);
+        wgmma_ss<-s>(acc[1][0], ai, wi);
+        wgmma_ss<s>(acc[1][1], ar, wi);
+        wgmma_ss<s>(acc[1][1], ai, wr);
       }
+    }
+    wgmma_commit();
+  }
+}
+
+// One table block's product on the warpgroup: acc[h] = A @ W for the
+// block's columns n (h = 0) and n + N2/2 (h = 1), the latter from the same
+// chunks with the odd half of k' negated (scale-a); W = W2c, or conj(W2c)
+// with kConj. A is the A area; the block is in the stages, the i-th
+// product's (each stage's full barrier completes once a product). When
+// its wgmmas are done, thread 0 starts the copy of table block next_tb
+// for the next product where load is set.
+template <int N2, bool kConj>
+__device__ __forceinline__ void stream_product(float (&acc)[2][2][16], uint32_t a_area,
+                                               uint32_t stages, uint64_t* full, uint32_t& i,
+                                               const unsigned char* table, int next_tb, bool load) {
+  using S = Stream<N2>;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int v = 0; v < 16; ++v) acc[h][p][v] = 0.0f;
+  const uint32_t parity = i & 1;
+  stream_chunks<N2, kConj, false>(acc, a_area, stages, full, parity, 0, S::kChunks / 2);
+  stream_chunks<N2, kConj, true>(acc, a_area, stages, full, parity, S::kChunks / 2, S::kChunks);
+  wgmma_wait<0>();
+  warpgroup_sync();  // every warp's products are done: the stages are free
+  load_block<N2>(stages, full, table, next_tb, load);
+  ++i;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    fence_operand(acc[h][0]);
+    fence_operand(acc[h][1]);
+  }
+}
+
+// The forward radix-16 DFT and twiddle of the warp's frame, rounded to bf16
+// into rows 16 warp .. + 15 of the A area (column m2 at k' = kprime(m2)); a
+// frame that does not exist (live false) is zeros
+template <int N2>
+__device__ __forceinline__ void forward_rows(const float* fa_r, const float* fa_i,
+                                             const float* fb_r, const float* fb_i,
+                                             const float2* twf, unsigned char* a_area, int s,
+                                             bool live, int warp, int lane) {
+  using S = Stream<N2>;
+#pragma unroll 1
+  for (int c = 0; c < N2 / 32; ++c) {
+    const int m2 = lane + 32 * c;
+    float2 x[kN1];
+#pragma unroll
+    for (int m1 = 0; m1 < kN1; ++m1) {
+      const int n = N2 * m1 + m2;
+      x[m1] = !live ? make_float2(0.0f, 0.0f)
+                    : (n < s ? make_float2(fa_r[n], fa_i[n]) : make_float2(fb_r[n - s], fb_i[n - s]));
+    }
+    float2 a[kN1];
+    small_dft<false>(x, a, 0);
+    const int kp = kprime<N2>(m2);
+    unsigned char* col = a_area + (kp >> 3) * 128 + (kp & 7) * 2;
+#pragma unroll
+    for (int k1 = 0; k1 < kN1; ++k1) {
+      const float2 t = __ldg(twf + k1 * N2 + m2);
+      const int m = 16 * warp + k1;
+      unsigned char* q = col + (m >> 3) * S::kASbo + (m & 7) * 16;
+      *reinterpret_cast<__nv_bfloat16*>(q) = __float2bfloat16_rn(a[k1].x * t.x - a[k1].y * t.y);
+      *reinterpret_cast<__nv_bfloat16*>(q + S::kAPlane) =
+          __float2bfloat16_rn(a[k1].x * t.y + a[k1].y * t.x);
     }
   }
 }
 
+// bf16(P), P = Y * R_b, for the warp's bin into rows 16 warp .. + 15 of the
+// A area: y and r the frame's spectrum and the bin's replica, [16][N2]
+// complex in k' order. Lane (row, og) writes a core matrix's row of 8 k' a
+// part at a time: a quarter-warp's eight rows are 128 contiguous bytes.
 template <int N2>
-__global__ void __launch_bounds__(32 * Plan<N2>::kWarps, 1)
-correlate_bf16_mma(const float* __restrict__ ar, const float* __restrict__ ai,
-                   const float* __restrict__ br, const float* __restrict__ bi,
-                   const float4* __restrict__ rep, const uint4* __restrict__ w2c,
-                   const float2* __restrict__ tw, float* __restrict__ out_pow,
-                   int* __restrict__ out_bin, int fpad, int s, int nb) {
-  using P = Plan<N2>;
+__device__ __forceinline__ void p_rows(unsigned char* a_area, const float2* y, const float2* r,
+                                       int warp, int lane) {
+  using S = Stream<N2>;
+  const int row = lane & 7, og = lane >> 3;
+#pragma unroll 1
+  for (int half = 0; half < 2; ++half) {
+    const int k1 = 8 * half + row;
+    const float4* yp = reinterpret_cast<const float4*>(y + k1 * N2);
+    const float4* rp = reinterpret_cast<const float4*>(r + k1 * N2);
+    unsigned char* dst = a_area + (2 * warp + half) * S::kASbo + row * 16;
+#pragma unroll 4
+    for (int o = og; o < N2 / 8; o += 4) {
+      uint32_t wr[4], wi[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 yv = __ldcg(yp + 4 * o + q);  // written by this kernel: not through L1
+        const float4 rv = __ldg(rp + 4 * o + q);
+        wr[q] = pack_bf16(yv.x * rv.x - yv.y * rv.y, yv.z * rv.z - yv.w * rv.w);
+        wi[q] = pack_bf16(yv.x * rv.y + yv.y * rv.x, yv.z * rv.w + yv.w * rv.z);
+      }
+      *reinterpret_cast<uint4*>(dst + o * 128) = make_uint4(wr[0], wr[1], wr[2], wr[3]);
+      *reinterpret_cast<uint4*>(dst + S::kAPlane + o * 128) = make_uint4(wi[0], wi[1], wi[2], wi[3]);
+    }
+  }
+}
+
+// Persistent blocks of one warpgroup, each a walk over groups of four
+// frames (group g, g + gridDim.x, ...); every pass of products sweeps the
+// table blocks in order, so the next product's block is always the next
+// one, modulo their number:
+// - forward: warp w's radix-16 DFT of frame 4 g + w into the A area, then
+//   for each table block Y / N2 = B @ conj(W2c) (both halves of the
+//   columns), Y scaled by N2 (exact) into the block's scratch, [frame][k1]
+//   [k'] complex;
+// - inverse, for each frame of the group and each group of four bins: warp
+//   w's bf16(Y * R_b) for bin 4 bg + w into the A area, then for each table
+//   block U = P @ W2c, each warp's U through its exchange tile so that a
+//   lane owns a column (twiddle, radix-16 inverse DFT, power), the four
+//   bins' powers through the tiles again to warp n1 / 4, which keeps the
+//   first max (strict >, bins in order) with the earlier groups' result in
+//   the outputs.
+template <int N2>
+__global__ void __launch_bounds__(st::kThreads, Stream<N2>::kMinBlocks)
+correlate_bf16_stream(const float* __restrict__ ar, const float* __restrict__ ai,
+                      const float* __restrict__ br, const float* __restrict__ bi,
+                      const float2* __restrict__ rep, const unsigned char* __restrict__ table,
+                      const float2* __restrict__ tw, float2* __restrict__ scratch,
+                      float* __restrict__ out_pow, int* __restrict__ out_bin, int fpad, int s,
+                      int nb) {
+  using S = Stream<N2>;
   constexpr int kN = kN1 * N2;
   extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[S::kChunks];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int64_t f = static_cast<int64_t>(blockIdx.x) * P::kWarps + warp;
-  if (f >= fpad) return;
-
-  unsigned char* base = smem + warp * P::kWarpBytes;
-  __nv_bfloat16* tre = reinterpret_cast<__nv_bfloat16*>(base);
-  __nv_bfloat16* tim = tre + kN1 * P::kLd;
-  float* ure = reinterpret_cast<float*>(base + P::kTile);
-  float* uim = ure + kN1 * kUld;
-  // the forward spectrum in the accumulator's fragment order: n-tile nt's
-  // real and imaginary fragments of the lane at spec[(2 nt + part) * 32 + lane]
-  float4* spec = reinterpret_cast<float4*>(base + P::kTile + P::kExch);
-  float* pmax = reinterpret_cast<float*>(base + P::kTile + P::kExch + P::kSpec);
-  unsigned char* pbin = base + P::kTile + P::kExch + P::kSpec + P::kMax;
-  const float2* twf = tw;            // [k1][m2]
-  const float2* twi = tw + kN1 * N2;  // [k1][n2]
-
-  forward_columns<N2>(ar + f * s, ai + f * s, br + f * s, bi + f * s, twf, tre, tim, P::kLd, s,
-                      true, lane);
-  __syncwarp();
-
-  // forward bulk DFT, Y = N2 (B @ conj(W2c))
-#pragma unroll
-  for (int g = 0; g < P::kGroups; ++g) {
-    float acc[4][2][4];
-    bulk_product<N2, true>(acc, tre, tim, w2c, g, lane);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float n2 = static_cast<float>(N2);  // exact
-      spec[(2 * (4 * g + j)) * 32 + lane] =
-          make_float4(n2 * acc[j][0][0], n2 * acc[j][0][1], n2 * acc[j][0][2], n2 * acc[j][0][3]);
-      spec[(2 * (4 * g + j) + 1) * 32 + lane] =
-          make_float4(n2 * acc[j][1][0], n2 * acc[j][1][1], n2 * acc[j][1][2], n2 * acc[j][1][3]);
-    }
+  unsigned char* stages = smem + S::kABytes;
+  const int groups = (fpad + st::kFrames - 1) / st::kFrames;
+  const int nbg = (nb + 3) / 4;
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < S::kChunks; ++k) mbar_init(&full[k], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-#pragma unroll 1
-  for (int k = lane; k < kN1 * N2; k += 32) {
-    pmax[k] = -1.0f;
-    pbin[k] = 0;
-  }
+  __syncthreads();  // the only block-wide barrier
+  load_block<N2>(smem_u32(stages), full, table, 0, threadIdx.x == 0);
 
+  const uint32_t a_area = smem_u32(smem);
+  const uint32_t stages_u32 = smem_u32(stages);
+  float* ure = reinterpret_cast<float*>(stages + S::kStageBytes + warp * st::kExch);
+  float* uim = ure + kN1 * 32;
+  float2* ys = scratch + static_cast<int64_t>(blockIdx.x) * st::kFrames * kN1 * N2;
+  const float2* twf = tw;              // [k1][m2]
+  const float2* twi = tw + kN1 * N2;   // [k1][n2]
   const int gid = lane >> 2;  // fragment row
   const int tig = lane & 3;   // fragment column pair
+  uint32_t i = 0;             // the products so far
+
 #pragma unroll 1
-  for (int b = 0; b < nb; ++b) {
-    __syncwarp();  // the A tile's last readers are done
-    // P = Y * R_b, rounded to bf16 into the A tile: the lane's fragment
-    // values sit at rows gid, gid + 8, columns 8 nt + 2 tig, + 1
-    const float4* rb = rep + static_cast<int64_t>(b) * P::kNT * 64;
-#pragma unroll
-    for (int nt = 0; nt < P::kNT; ++nt) {
-      const float4 yr = spec[(2 * nt) * 32 + lane];
-      const float4 yi = spec[(2 * nt + 1) * 32 + lane];
-      const float4 rr = __ldg(rb + (2 * nt) * 32 + lane);
-      const float4 ri = __ldg(rb + (2 * nt + 1) * 32 + lane);
-      const int col = 8 * nt + 2 * tig;
-      uint32_t* r0 = reinterpret_cast<uint32_t*>(tre + gid * P::kLd + col);
-      uint32_t* r8 = reinterpret_cast<uint32_t*>(tre + (gid + 8) * P::kLd + col);
-      uint32_t* i0 = reinterpret_cast<uint32_t*>(tim + gid * P::kLd + col);
-      uint32_t* i8 = reinterpret_cast<uint32_t*>(tim + (gid + 8) * P::kLd + col);
-      *r0 = pack_bf16(yr.x * rr.x - yi.x * ri.x, yr.y * rr.y - yi.y * ri.y);
-      *r8 = pack_bf16(yr.z * rr.z - yi.z * ri.z, yr.w * rr.w - yi.w * ri.w);
-      *i0 = pack_bf16(yr.x * ri.x + yi.x * rr.x, yr.y * ri.y + yi.y * rr.y);
-      *i8 = pack_bf16(yr.z * ri.z + yi.z * rr.z, yr.w * ri.w + yi.w * rr.w);
+  for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    const int64_t f0 = static_cast<int64_t>(grp) * st::kFrames;
+    const int live = fpad - f0 < st::kFrames ? static_cast<int>(fpad - f0) : st::kFrames;
+    const bool last_group = grp + static_cast<int>(gridDim.x) >= groups;
+    {
+      const int64_t f = f0 + warp;
+      forward_rows<N2>(ar + f * s, ai + f * s, br + f * s, bi + f * s, twf, smem, s, warp < live,
+                       warp, lane);
     }
-    __syncwarp();
+    fence_async_shared();
+    warpgroup_sync();
+
+    // forward bulk DFT, a table block at a time: the warp's frame's rows
+    // gid, gid + 8 and columns n = 32 tb + 8 j + 2 tig (+1), + N2/2 (h = 1)
 #pragma unroll 1
-    for (int g = 0; g < P::kGroups; ++g) {
-      float acc[4][2][4];
-      bulk_product<N2, false>(acc, tre, tim, w2c, g, lane);
-      // the group's U [16, 32] through the exchange tile
+    for (int tb = 0; tb < S::kBlocks; ++tb) {
+      float acc[2][2][16];
+      stream_product<N2, true>(acc, a_area, stages_u32, full, i, table, (tb + 1) % S::kBlocks,
+                               threadIdx.x == 0);
+      float2* yw = ys + warp * kN1 * N2;
+      const float n2f = static_cast<float>(N2);  // exact
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = 8 * j + 2 * tig;
-        *reinterpret_cast<float2*>(ure + gid * kUld + col) = make_float2(acc[j][0][0], acc[j][0][1]);
-        *reinterpret_cast<float2*>(ure + (gid + 8) * kUld + col) = make_float2(acc[j][0][2], acc[j][0][3]);
-        *reinterpret_cast<float2*>(uim + gid * kUld + col) = make_float2(acc[j][1][0], acc[j][1][1]);
-        *reinterpret_cast<float2*>(uim + (gid + 8) * kUld + col) = make_float2(acc[j][1][2], acc[j][1][3]);
-      }
-      __syncwarp();
-      // the lane's column n2: twiddle, radix-16 inverse DFT, power, max
-      const int n2 = 32 * g + lane;
-      float2 v[kN1];
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int k1 = 0; k1 < kN1; ++k1) {
-        const float u_r = ure[k1 * kUld + lane];
-        const float u_i = uim[k1 * kUld + lane];
-        const float2 t = __ldg(twi + k1 * N2 + n2);
-        v[k1] = make_float2(u_r * t.x - u_i * t.y, u_r * t.y + u_i * t.x);
-      }
-      __syncwarp();  // the exchange tile is free for the next group
-      float2 y[kN1];
-      small_dft<true>(v, y, kN1 * kN1);
+        for (int v = 0; v < 16; ++v) {
+          const int row = gid + 8 * ((v >> 1) & 1);
+          const int n = st::kCols * tb + 8 * (v >> 2) + 2 * tig + (v & 1) + h * (N2 / 2);
+          __stcg(yw + row * N2 + kprime<N2>(n), make_float2(n2f * acc[h][0][v], n2f * acc[h][1][v]));
+        }
+    }
+    warpgroup_sync();  // Y is written; the A area is free
+
+    // inverse, a frame of the group and four bins at a time
+#pragma unroll 1
+    for (int fr = 0; fr < live; ++fr) {
+      const int64_t f = f0 + fr;
+#pragma unroll 1
+      for (int bg = 0; bg < nbg; ++bg) {
+        const int b = 4 * bg + warp;
+        if (b < nb) p_rows<N2>(smem, ys + fr * kN1 * N2, rep + static_cast<int64_t>(b) * kN1 * N2, warp, lane);
+        fence_async_shared();
+        warpgroup_sync();
+#pragma unroll 1
+        for (int tb = 0; tb < S::kBlocks; ++tb) {
+          float acc[2][2][16];
+          const bool more = !(last_group && fr == live - 1 && bg == nbg - 1 && tb == S::kBlocks - 1);
+          stream_product<N2, false>(acc, a_area, stages_u32, full, i, table, (tb + 1) % S::kBlocks,
+                                    more && threadIdx.x == 0);
 #pragma unroll
-      for (int n1 = 0; n1 < kN1; ++n1) {
-        const float p = y[n1].x * y[n1].x + y[n1].y * y[n1].y;
-        const int slot = (g * kN1 + n1) * 32 + lane;
-        if (p > pmax[slot]) {
-          pmax[slot] = p;
-          pbin[slot] = static_cast<unsigned char>(b);
+          for (int h = 0; h < 2; ++h) {
+            // the lane's column n2 and the earlier bin groups' result for
+            // rows 4 warp .. + 3, loaded while U is exchanged and transformed
+            const int n2 = st::kCols * tb + lane + h * (N2 / 2);
+            float old_p[4];
+            int old_b[4];
+            if (bg > 0) {
+#pragma unroll
+              for (int r = 0; r < 4; ++r) {
+                const int64_t at = f * kN + N2 * (4 * warp + r) + n2;
+                old_p[r] = __ldcg(out_pow + at);
+                old_b[r] = __ldcg(out_bin + at);
+              }
+            }
+            // the warp's U [16, 32] through its exchange tile
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int o = 4 * j, col = 8 * j + 2 * tig;
+              *reinterpret_cast<float2*>(ure + exch_at(gid, col)) = make_float2(acc[h][0][o], acc[h][0][o + 1]);
+              *reinterpret_cast<float2*>(ure + exch_at(gid + 8, col)) = make_float2(acc[h][0][o + 2], acc[h][0][o + 3]);
+              *reinterpret_cast<float2*>(uim + exch_at(gid, col)) = make_float2(acc[h][1][o], acc[h][1][o + 1]);
+              *reinterpret_cast<float2*>(uim + exch_at(gid + 8, col)) = make_float2(acc[h][1][o + 2], acc[h][1][o + 3]);
+            }
+            __syncwarp();
+            // the lane's column: twiddle, radix-16 inverse DFT, power
+            float2 v[kN1];
+#pragma unroll
+            for (int k1 = 0; k1 < kN1; ++k1) {
+              const float u_r = ure[exch_at(k1, lane)];
+              const float u_i = uim[exch_at(k1, lane)];
+              const float2 t = __ldg(twi + k1 * N2 + n2);
+              v[k1] = make_float2(u_r * t.x - u_i * t.y, u_r * t.y + u_i * t.x);
+            }
+            float2 y[kN1];
+            small_dft<true>(v, y, kN1 * kN1);
+            __syncwarp();  // the tile is read: the powers go there
+#pragma unroll
+            for (int n1 = 0; n1 < kN1; ++n1) ure[n1 * 32 + lane] = y[n1].x * y[n1].x + y[n1].y * y[n1].y;
+            warpgroup_sync();
+            // rows n1 = 4 warp .. + 3: the first max over the group's bins,
+            // then with the earlier groups' in the outputs
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int n1 = 4 * warp + r;
+              float best = -1.0f;
+              int bin = 0;
+#pragma unroll
+              for (int w = 0; w < 4; ++w) {
+                const float* pw = reinterpret_cast<const float*>(stages + S::kStageBytes + w * st::kExch);
+                const float p = pw[n1 * 32 + lane];
+                if (4 * bg + w < nb && p > best) {
+                  best = p;
+                  bin = 4 * bg + w;
+                }
+              }
+              const int64_t at = f * kN + N2 * n1 + n2;
+              if (bg > 0 && !(best > old_p[r])) {
+                best = old_p[r];
+                bin = old_b[r];
+              }
+              __stcg(out_pow + at, best);
+              __stcg(out_bin + at, bin);
+            }
+            warpgroup_sync();  // the tiles are read: the next U goes there
+          }
         }
       }
     }
   }
-
-  float* op = out_pow + f * kN;
-  int* ob = out_bin + f * kN;
-#pragma unroll 1
-  for (int g = 0; g < P::kGroups; ++g) {
-#pragma unroll
-    for (int n1 = 0; n1 < kN1; ++n1) {
-      const int slot = (g * kN1 + n1) * 32 + lane;
-      op[N2 * n1 + 32 * g + lane] = pmax[slot];
-      ob[N2 * n1 + 32 * g + lane] = pbin[slot];
-    }
-  }
 }
 
-// resident blocks an SM of the N = 2048 kernel (its shared memory), asked once
-int wgmma_blocks_per_sm() {
-  static int blocks = -1;
-  if (blocks < 0) {
-    int b = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, correlate_bf16_wgmma, wg::kThreads,
-                                                      wg::kBytes) != cudaSuccess)
-      return 0;
-    blocks = b;
-  }
-  return blocks;
-}
+// Each size's kernel, its threads, dynamic shared memory, frames a block
+// in flight, and its resident blocks an SM (asked once)
+struct Launch {
+  const void* fn;
+  int threads, bytes, frames;
+};
 
-int set_smem(int log2n) {
+Launch launch_of(int log2n) {
   switch (log2n) {
     case 11:
-      return static_cast<int>(cudaFuncSetAttribute(
-          correlate_bf16_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kBytes));
+      return {reinterpret_cast<const void*>(correlate_bf16_wgmma), wg::kThreads, wg::kBytes,
+              wg::kGroups * wg::kFrames};
     case 12:
-      return static_cast<int>(cudaFuncSetAttribute(
-          correlate_bf16_mma<256>, cudaFuncAttributeMaxDynamicSharedMemorySize, Plan<256>::kBytes));
+      return {reinterpret_cast<const void*>(correlate_bf16_stream<256>), st::kThreads,
+              Stream<256>::kBytes, st::kFrames};
     case 13:
-      return static_cast<int>(cudaFuncSetAttribute(
-          correlate_bf16_mma<512>, cudaFuncAttributeMaxDynamicSharedMemorySize, Plan<512>::kBytes));
+      return {reinterpret_cast<const void*>(correlate_bf16_stream<512>), st::kThreads,
+              Stream<512>::kBytes, st::kFrames};
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return {nullptr, 0, 0, 0};
   }
+}
+
+int set_smem(const Launch& l) {
+  if (l.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      cudaFuncSetAttribute(l.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes));
+}
+
+int blocks_per_sm(int log2n, const Launch& l, int* out) {
+  static int cached[3] = {-1, -1, -1};
+  int& c = cached[log2n - 11];
+  if (c < 0) {
+    int err = set_smem(l);
+    if (err == 0)
+      err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c, l.fn, l.threads, l.bytes));
+    if (err != 0) {
+      c = -1;
+      return err;
+    }
+  }
+  *out = c;
+  return 0;
 }
 
 }  // namespace
 
 // log2n in {11, 12, 13}: N = 2048, 4096 or 8192; 1 <= nb <= 256 and fpad >= 1
-// (the wrapper checks them). rep: the replica spectra in fragment order;
-// w2c: the bf16 bulk table W2c (wgmma's core-matrix layout at N = 2048, mma's
-// fragment order otherwise); small: F1 and W1c rounded to bf16; tw: the
-// forward and inverse twiddles (ops/acquire_cuda.py::bf16_tables,
-// replica_table_bf16).
+// (the wrapper checks them). rep: the replica spectra (the accumulator's
+// fragment order at N = 2048, [nb][16][N2] complex in k' order otherwise);
+// w2c: the bf16 bulk table in the kernel's layout; small: F1 and W1c rounded
+// to bf16; tw: the forward and inverse twiddles
+// (ops/acquire_cuda.py::bf16_tables, replica_table_bf16). At N = 4096 and
+// 8192 scratch holds the spectra of the groups in flight, four frames of
+// [16][N2] complex a block, for at most scratch_blocks blocks.
 extern "C" int pm_correlate_bf16(const void* ar, const void* ai, const void* br, const void* bi,
                                  const void* rep, const void* w2c, const void* small,
-                                 const void* tw, void* out_pow, void* out_bin, int fpad, int s,
-                                 int nb, int log2n, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = set_smem(log2n);
+                                 const void* tw, void* scratch, void* out_pow, void* out_bin,
+                                 int fpad, int s, int nb, int log2n, int scratch_blocks,
+                                 void* stream) {
+  cudaStream_t st_ = static_cast<cudaStream_t>(stream);
+  const Launch l = launch_of(log2n);
+  int per_sm = 0;
+  int err = l.fn == nullptr ? static_cast<int>(cudaErrorInvalidValue) : blocks_per_sm(log2n, l, &per_sm);
+  if (err != 0) return err;
+  err = set_smem(l);
   if (err != 0) return err;
   err = static_cast<int>(cudaMemcpyToSymbolAsync(c_small, small, sizeof(c_small), 0,
-                                                 cudaMemcpyDeviceToDevice, st));
+                                                 cudaMemcpyDeviceToDevice, st_));
   if (err != 0) return err;
+  int dev = 0, sms = 0;
+  err = static_cast<int>(cudaGetDevice(&dev));
+  if (err == 0) err = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  if (err != 0) return err;
+  const int resident = sms * per_sm;
+  if (resident == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const float* a_r = static_cast<const float*>(ar);
   const float* a_i = static_cast<const float*>(ai);
   const float* b_r = static_cast<const float*>(br);
   const float* b_i = static_cast<const float*>(bi);
-  const float4* r = static_cast<const float4*>(rep);
-  const uint4* t = static_cast<const uint4*>(w2c);
   const float2* w = static_cast<const float2*>(tw);
   float* op = static_cast<float*>(out_pow);
   int* ob = static_cast<int*>(out_bin);
   if (log2n == 11) {
-    int dev = 0, sms = 0;
-    err = static_cast<int>(cudaGetDevice(&dev));
-    if (err == 0) err = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-    if (err != 0) return err;
     // persistent: at most the resident blocks of the card, each a walk over
     // groups of four frames, two warpgroups a block
     const int groups = (fpad + wg::kFrames - 1) / wg::kFrames;
-    const int resident = sms * wgmma_blocks_per_sm();
-    if (resident == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
     const int need = (groups + wg::kGroups - 1) / wg::kGroups;
     const int blocks = need < resident ? need : resident;
-    correlate_bf16_wgmma<<<blocks, wg::kThreads, wg::kBytes, st>>>(a_r, a_i, b_r, b_i, r, t, w, op,
-                                                                   ob, fpad, s, nb);
-  } else if (log2n == 12) {
-    const int blocks = (fpad + Plan<256>::kWarps - 1) / Plan<256>::kWarps;
-    correlate_bf16_mma<256><<<blocks, 32 * Plan<256>::kWarps, Plan<256>::kBytes, st>>>(
-        a_r, a_i, b_r, b_i, r, t, w, op, ob, fpad, s, nb);
+    correlate_bf16_wgmma<<<blocks, wg::kThreads, wg::kBytes, st_>>>(
+        a_r, a_i, b_r, b_i, static_cast<const float4*>(rep), static_cast<const uint4*>(w2c), w, op,
+        ob, fpad, s, nb);
   } else {
-    correlate_bf16_mma<512><<<fpad, 32, Plan<512>::kBytes, st>>>(a_r, a_i, b_r, b_i, r, t, w, op,
-                                                                  ob, fpad, s, nb);
+    // persistent: a block a group of four frames at a time, at most the
+    // resident blocks and the blocks the scratch holds
+    const int groups = (fpad + st::kFrames - 1) / st::kFrames;
+    int blocks = groups < resident ? groups : resident;
+    if (scratch_blocks < blocks) blocks = scratch_blocks;
+    if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const float2* r = static_cast<const float2*>(rep);
+    const unsigned char* t = static_cast<const unsigned char*>(w2c);
+    float2* y = static_cast<float2*>(scratch);
+    if (log2n == 12) {
+      correlate_bf16_stream<256><<<blocks, st::kThreads, Stream<256>::kBytes, st_>>>(
+          a_r, a_i, b_r, b_i, r, t, w, y, op, ob, fpad, s, nb);
+    } else {
+      correlate_bf16_stream<512><<<blocks, st::kThreads, Stream<512>::kBytes, st_>>>(
+          a_r, a_i, b_r, b_i, r, t, w, y, op, ob, fpad, s, nb);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -832,31 +1119,19 @@ extern "C" int pm_correlate_bf16(const void* ar, const void* ai, const void* br,
 // shared memory bytes a block, out[3] threads a block, out[4] resident
 // blocks an SM, out[5] frames in flight an SM.
 extern "C" int pm_correlate_bf16_resources(int log2n, int* out) {
-  int err = set_smem(log2n);
+  const Launch l = launch_of(log2n);
+  if (l.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  int err = blocks_per_sm(log2n, l, &blocks);
   if (err != 0) return err;
   cudaFuncAttributes attr;
-  const void* fn;
-  int threads, bytes, frames;
-  if (log2n == 11) {
-    fn = reinterpret_cast<const void*>(correlate_bf16_wgmma);
-    threads = wg::kThreads, bytes = wg::kBytes, frames = wg::kGroups * wg::kFrames;
-  } else if (log2n == 12) {
-    fn = reinterpret_cast<const void*>(correlate_bf16_mma<256>);
-    threads = 32 * Plan<256>::kWarps, bytes = Plan<256>::kBytes, frames = Plan<256>::kWarps;
-  } else {
-    fn = reinterpret_cast<const void*>(correlate_bf16_mma<512>);
-    threads = 32 * Plan<512>::kWarps, bytes = Plan<512>::kBytes, frames = Plan<512>::kWarps;
-  }
-  err = static_cast<int>(cudaFuncGetAttributes(&attr, fn));
-  if (err != 0) return err;
-  int blocks = 0;
-  err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, bytes));
+  err = static_cast<int>(cudaFuncGetAttributes(&attr, l.fn));
   if (err != 0) return err;
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = bytes;
-  out[3] = threads;
+  out[2] = l.bytes;
+  out[3] = l.threads;
   out[4] = blocks;
-  out[5] = blocks * frames;
+  out[5] = blocks * l.frames;
   return 0;
 }

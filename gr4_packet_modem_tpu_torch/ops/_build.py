@@ -53,8 +53,9 @@ _SIGNATURES = {
     "pm_fetch_rows": [_P, _P, _P, _I64, _I, _I, _I, _P],
     # ar, ai, br, bi, rf, tw, best_pow, best_bin, fpad, s, nb, log2n, stream
     "pm_correlate": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # ar, ai, br, bi, rep, w2c, small, tw, best_pow, best_bin, fpad, s, nb, log2n, stream
-    "pm_correlate_bf16": [_P] * 10 + [_I, _I, _I, _I, _P],
+    # ar, ai, br, bi, rep, w2c, small, tw, scratch, best_pow, best_bin, fpad, s, nb, log2n,
+    # scratch_blocks, stream
+    "pm_correlate_bf16": [_P] * 11 + [_I, _I, _I, _I, _I, _P],
     # log2n, out[6] (no launch: the bf16 kernel's registers, shared memory, residency)
     "pm_correlate_bf16_resources": [_I, _P],
     # zr, zi, taps, outr, outi, region_len, ntaps, sps, num_syms, d, stream

@@ -19,11 +19,12 @@ With ``bf16=True`` it computes the TPU kernel's bf16 form instead
 (``_make_kernel(..., bf16=True)``): both DFTs factored as N = 16 x N2, the
 bulk products over N2 with bf16 inputs and float32 accumulation, the
 radix-16 DFTs in float32 with their tables rounded to bf16. CUDA tensors
-launch ``csrc/correlate_bf16.cu`` (bf16 tensor cores: persistent blocks
-with wgmma at N=2048, mma.sync at 4096 and 8192; :func:`persistent_walk`
-models the first's frames, :func:`bf16_kernel_resources` reads what the
-card gives each); CPU tensors run :func:`fused_best_power_bf16_plain`, the
-same factorization in torch.
+launch ``csrc/correlate_bf16.cu`` (bf16 tensor cores through wgmma in
+persistent blocks: at N=2048 from one table resident in shared memory, at
+4096 and 8192 from a table streamed into shared memory a block at a time;
+:func:`persistent_walk` and :func:`stream_plan` model the two walks,
+:func:`bf16_kernel_resources` reads what the card gives each); CPU tensors
+run :func:`fused_best_power_bf16_plain`, the same factorization in torch.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ __all__ = [
     "fused_best_power", "fused_best_power_plain", "replica_table", "KERNEL_FFT_SIZES",
     "dft_tables", "bf16_tables", "bf16_bin_powers", "fused_best_power_bf16_plain",
     "fragment_index", "replica_table_bf16", "persistent_walk", "bf16_kernel_resources",
-    "WGMMA_FFT_SIZES",
+    "WGMMA_FFT_SIZES", "STREAM_FFT_SIZES", "stream_kprime", "stream_plan",
 ]
 
 # the kernel's transform sizes: 16 points a thread, N / 16 threads a frame
@@ -121,24 +122,6 @@ def _bf16_bits(a: np.ndarray) -> np.ndarray:
     return t.view(torch.int16).numpy().view(np.uint16)
 
 
-def _b_fragments(t: np.ndarray) -> np.ndarray:
-    """A complex ``[K, N]`` table as mma.m16n8k16's B fragments, rounded to
-    bf16: int32 ``[N/8, K/16, 32, 4]``, for n-tile ``nt``, k-step ``ks``
-    and lane ``4 g + q`` the words (re b0, re b1, im b0, im b1), where b0
-    holds rows ``16 ks + 2 q``, ``+ 1`` and b1 rows ``16 ks + 2 q + 8``,
-    ``+ 9`` of column ``8 nt + g`` (the lower row in the low half)."""
-    k, n = t.shape
-    lane = np.arange(32)
-    col = 8 * np.arange(n // 8)[:, None, None] + (lane >> 2)
-    row = 16 * np.arange(k // 16)[None, :, None] + 2 * (lane & 3)
-    words = []
-    for part in (t.real, t.imag):
-        bits = _bf16_bits(part).astype(np.uint32)
-        for r in (row, row + 8):
-            words.append(bits[r, col] | (bits[r + 1, col] << 16))
-    return np.stack(words, axis=-1).view(np.int32)
-
-
 def _b_core_matrices(t: np.ndarray) -> np.ndarray:
     """A complex ``[K, N]`` table as wgmma reads its B operand from shared
     memory (K-major, no swizzle), rounded to bf16: int16 ``[2, N/8, K/8,
@@ -174,21 +157,65 @@ def fragment_index(n: int) -> np.ndarray:
 WGMMA_FFT_SIZES = (2048,)
 WG_GROUPS = 2
 WG_FRAMES = 4
+# the sizes whose kernel streams the table into shared memory a block at a
+# time (correlate_bf16_stream: namespace st, struct Stream): table blocks of
+# STREAM_COLS columns in chunks of STREAM_CHUNK_K rows, groups of
+# STREAM_FRAMES frames, bins four at a time
+STREAM_FFT_SIZES = (4096, 8192)
+STREAM_COLS = 32
+STREAM_CHUNK_K = 128
+STREAM_FRAMES = 4
+
+
+def stream_kprime(n2: int) -> np.ndarray:
+    """The natural row ``k`` at each position ``k'`` of the streaming
+    kernel's K order: the even rows, then the odd ones (int64 ``[N2]``), so
+    that the second half of W2c's columns, ``(-1)^k`` times the first, is
+    the first half with the odd half of ``k'`` negated."""
+    return np.concatenate([np.arange(0, n2, 2), np.arange(1, n2, 2)])
+
+
+def _stream_table(w2c: np.ndarray) -> np.ndarray:
+    """W2c's first ``N2/2`` columns as the streaming kernel reads its
+    chunks, rounded to bf16: int16 ``[blocks, chunks, 2, 4, 16, 8, 8]``,
+    for table block ``tb`` (columns ``32 tb ..``), chunk ``kc`` (rows ``k' =
+    128 kc ..``) and part (re, im), the K-major core matrix (column block
+    ``n // 8``, row block ``k' // 8``) of 128 bytes, column ``n % 8`` at 16
+    bytes a column and row ``k' % 8`` within it: a chunk is 16 KB, its
+    core matrices 128 bytes apart along K and 2048 along N."""
+    n2 = w2c.shape[0]
+    t = w2c[stream_kprime(n2)][:, : n2 // 2]
+    parts = [_bf16_bits(p).reshape(n2 // STREAM_CHUNK_K, STREAM_CHUNK_K // 8, 8,
+                                   n2 // 2 // STREAM_COLS, STREAM_COLS // 8, 8).transpose(3, 0, 4, 1, 5, 2)
+             for p in (t.real, t.imag)]
+    return np.ascontiguousarray(np.stack(parts, axis=2))
+
+
+def _replica_index(n: int) -> np.ndarray:
+    """The flat frequency ``k1 + 16 k2`` at each place of the bf16 kernel's
+    replica layout: :func:`fragment_index` at the sizes of
+    ``WGMMA_FFT_SIZES``, else ``[16, N2]`` with ``k2`` in the order
+    :func:`stream_kprime`."""
+    if n in WGMMA_FFT_SIZES:
+        return fragment_index(n)
+    n2 = n // _N1
+    return np.arange(_N1)[:, None] + _N1 * stream_kprime(n2)[None, :]
 
 
 @lru_cache(maxsize=8)
 def bf16_tables(n: int) -> dict[str, np.ndarray]:
     """The bf16 kernel's host tables, in numpy: ``w2c``, the bulk factor
     ``w2c`` rounded to bf16, which serves both bulk products (rounded, ``f2``
-    is N2 times its conjugate): at the sizes of ``WGMMA_FFT_SIZES`` its
-    columns ``0 .. N2/2 - 1`` in wgmma's layout (:func:`_b_core_matrices`;
-    column ``n + N2/2`` is column ``n`` times ``(-1)^k``, which the kernel
-    applies to its A operand; bit for bit but where the exact value is 0
-    and the table holds rounding noise under 1e-15), otherwise all of it
-    as mma's B fragments (:func:`_b_fragments`); ``small``, float32 ``[2,
-    16, 16, 2]``, ``f1`` and ``w1c`` rounded to bf16 as (re, im) pairs;
-    ``tw``, float32 ``[2, 16, N2, 2]``, the forward and the inverse
-    twiddles (float32, as the TPU kernel keeps them)."""
+    is N2 times its conjugate), its columns ``0 .. N2/2 - 1`` only (column
+    ``n + N2/2`` is column ``n`` times ``(-1)^k``, which the kernel applies
+    to its left operand; bit for bit but where the exact value is 0 and the
+    table holds rounding noise under 1e-15): at the sizes of
+    ``WGMMA_FFT_SIZES`` in wgmma's layout (:func:`_b_core_matrices`), at
+    those of ``STREAM_FFT_SIZES`` in the streaming kernel's chunks
+    (:func:`_stream_table`); ``small``, float32 ``[2, 16, 16, 2]``, ``f1``
+    and ``w1c`` rounded to bf16 as (re, im) pairs; ``tw``, float32 ``[2,
+    16, N2, 2]``, the forward and the inverse twiddles (float32, as the TPU
+    kernel keeps them)."""
     t = dft_tables(n)
 
     def rounded(a):
@@ -197,7 +224,7 @@ def bf16_tables(n: int) -> dict[str, np.ndarray]:
 
     w2c = t["w2c"]
     return {
-        "w2c": _b_core_matrices(w2c[:, : w2c.shape[1] // 2]) if n in WGMMA_FFT_SIZES else _b_fragments(w2c),
+        "w2c": _b_core_matrices(w2c[:, : w2c.shape[1] // 2]) if n in WGMMA_FFT_SIZES else _stream_table(w2c),
         "small": np.stack([rounded(t["f1"]), rounded(t["w1c"])]),
         "tw": np.stack([t["twf"][:, 0], t["tw"][:, 0]]).view(np.float32).reshape(2, _N1, -1, 2),
     }
@@ -222,12 +249,51 @@ def persistent_walk(fpad: int, resident: int) -> np.ndarray:
     return np.where((g[..., None] < groups) & (frames < fpad), frames, -1)
 
 
+def stream_plan(fpad: int, resident: int, nb: int, n: int) -> list[dict]:
+    """The streaming kernel's walk and table loads at ``n`` in
+    ``STREAM_FFT_SIZES``, one entry a block of its grid
+    (``min(resident, ceil(fpad / STREAM_FRAMES))`` blocks). Block ``k``
+    takes the groups of STREAM_FRAMES frames ``g = k, k + blocks, ...``; a
+    group's passes are its forward pass (its frames; a missing frame of a
+    ragged last group is zeros) and, for each frame it has and each group
+    of four bins, an inverse pass (bins ``4 bg ..``, those below ``nb``).
+    A pass is one product a table block, the blocks in order. The table
+    block of a block's first product is loaded at its start, and that of
+    product ``p + 1`` once product ``p``'s wgmmas are done, by the kernel's
+    rule ``(tb + 1) % blocks``; its last product loads none. Each stage's
+    full barrier completes once a product, so product ``p`` waits for its
+    phase ``p``, parity ``p & 1``. Each entry: ``passes``, a list of
+    (kind, frames, bins); ``products``, int64 ``[count, 3]`` rows of
+    (pass, table block, parity); ``loads``, int64 ``[count]``, the table
+    block each load brings, in order (the start's, then one after each
+    product but the last)."""
+    blocks_tb = (n // _N1) // 2 // STREAM_COLS
+    groups = -(-fpad // STREAM_FRAMES)
+    blocks = min(resident, groups)
+    nbg = -(-nb // 4)
+    out = []
+    for k in range(blocks):
+        passes = []
+        for g in range(k, groups, blocks):
+            frames = list(range(STREAM_FRAMES * g, min(STREAM_FRAMES * (g + 1), fpad)))
+            passes.append(("forward", frames, []))
+            for f in frames:
+                for bg in range(nbg):
+                    passes.append(("inverse", [f], list(range(4 * bg, min(4 * bg + 4, nb)))))
+        p = np.arange(len(passes) * blocks_tb)
+        tb = p % blocks_tb
+        loads = np.concatenate([[0], (tb[:-1] + 1) % blocks_tb])
+        out.append({"passes": passes, "products": np.stack([p // blocks_tb, tb, p & 1], axis=1),
+                    "loads": loads})
+    return out
+
+
 @lru_cache(maxsize=8)
 def _bf16_device_tables(n: int, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """:func:`bf16_tables` on ``device``, and :func:`fragment_index`."""
+    """:func:`bf16_tables` on ``device``, and :func:`_replica_index`."""
     t = bf16_tables(n)
     return (*(torch.from_numpy(t[k]).to(device) for k in ("w2c", "small", "tw")),
-            torch.from_numpy(fragment_index(n)).to(device))
+            torch.from_numpy(_replica_index(n)).to(device))
 
 
 def bf16_kernel_resources(fft_size: int) -> dict[str, int]:
@@ -243,14 +309,25 @@ def bf16_kernel_resources(fft_size: int) -> dict[str, int]:
     return dict(zip(keys, out))
 
 
+@lru_cache(maxsize=8)
+def _resident_blocks(fft_size: int, device: torch.device) -> int:
+    """The streaming kernel's resident blocks on ``device``'s card."""
+    with torch.cuda.device(device):
+        per_sm = bf16_kernel_resources(fft_size)["blocks_per_sm"]
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def replica_table_bf16(rfr: torch.Tensor, rfi: torch.Tensor, fft_size: int) -> torch.Tensor:
-    """The replica spectra as the bf16 kernel reads them: float32
-    ``[nb, N2/8, 2, 32, 4]``, for each bin, n-tile and part (re, im) the
-    values of the lane's accumulator fragments (:func:`fragment_index`),
-    in float32 as the TPU kernel keeps them. A caller that keeps its
-    replicas builds this once and passes it to :func:`fused_best_power`."""
+    """The replica spectra as the bf16 kernel reads them, in float32 as the
+    TPU kernel keeps them: at the sizes of ``WGMMA_FFT_SIZES`` ``[nb, N2/8,
+    2, 32, 4]``, for each bin, n-tile and part (re, im) the values of the
+    lane's accumulator fragments (:func:`fragment_index`); at those of
+    ``STREAM_FFT_SIZES`` ``[nb, 16, N2, 2]``, ``R_b[k1, k2]`` as (re, im)
+    with ``k2`` in the order :func:`stream_kprime`. A caller that keeps
+    its replicas builds this once and passes it to
+    :func:`fused_best_power`."""
     idx = _bf16_device_tables(fft_size, rfr.device)[-1]
-    return torch.stack([rfr[:, idx], rfi[:, idx]], dim=2).contiguous()
+    return torch.stack([rfr[:, idx], rfi[:, idx]], dim=2 if fft_size in WGMMA_FFT_SIZES else -1).contiguous()
 
 
 def _bf16_bins(ar, ai, br, bi, rfr, rfi, fft_size: int):
@@ -444,7 +521,8 @@ def fused_best_power(
     if bf16:
         w2c, small, tw, _ = _bf16_device_tables(fft_size, ar.device)
         rf = replica_table_bf16(rfr, rfi, fft_size) if table is None else table
-        shape = (nb, fft_size // 128, 2, 32, 4)
+        n2 = fft_size // _N1
+        shape = (nb, n2 // 8, 2, 32, 4) if fft_size in WGMMA_FFT_SIZES else (nb, _N1, n2, 2)
     else:
         tw, _ = _tables(fft_size, ar.device)
         rf = replica_table(rfr, rfi, fft_size) if table is None else table
@@ -458,12 +536,19 @@ def fused_best_power(
     if fpad == 0:
         return best_pow, best_bin
     if bf16:
+        # the streaming kernel's scratch: four frames' spectra a block of
+        # its grid (at most the resident blocks, at most a block a group)
+        blocks = 0
+        scratch = best_pow
+        if fft_size in STREAM_FFT_SIZES:
+            blocks = min(_resident_blocks(fft_size, ar.device), -(-fpad // STREAM_FRAMES))
+            scratch = ar.new_empty(blocks, STREAM_FRAMES, _N1, fft_size // _N1, 2)
         _build.launch(
             "correlate_bf16", "pm_correlate_bf16", ar.device,
             ar.data_ptr(), ai.data_ptr(), br.data_ptr(), bi.data_ptr(), rf.data_ptr(),
-            w2c.data_ptr(), small.data_ptr(), tw.data_ptr(),
+            w2c.data_ptr(), small.data_ptr(), tw.data_ptr(), scratch.data_ptr(),
             best_pow.data_ptr(), best_bin.data_ptr(),
-            fpad, s, nb, fft_size.bit_length() - 1, _build.stream_of(ar),
+            fpad, s, nb, fft_size.bit_length() - 1, blocks, _build.stream_of(ar),
         )
     else:
         _build.launch(

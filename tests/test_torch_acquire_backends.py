@@ -8,11 +8,13 @@ tests/reference_impl.py elsewhere) or taken from the JAX tests' own signal
 helpers as numpy arrays, and the same arrays go to both packages. Held to:
 
 - the carried tables (the conv kernel, the four-step DFT factors) bit for
-  bit, and the bf16 kernel's host tables read back through the mma
-  fragment layouts;
+  bit, and the bf16 kernel's host tables read back through the kernel's
+  layouts (wgmma's core matrices at N=2048, the streaming kernel's chunks
+  at 4096 and 8192);
 - K1's bf16 form, the plain version of ``csrc/correlate_bf16.cu``, against
-  the JAX kernel with ``bf16=True`` on one block of frames (FPAD=16,
-  N=2048, 9 bins): best power within rtol 1e-2 and atol 1e-4 x max, best
+  the JAX kernel with ``bf16=True`` on one block of frames (FPAD=16;
+  N=2048 with 9 bins, 4096 and 8192 with 5): best power within rtol 1e-2
+  and atol 1e-4 x max, best
   bin equal wherever the JAX kernel's best bin beats its second best by
   more than 5 % (each bin's power from the JAX kernel run on that replica
   alone);
@@ -24,7 +26,8 @@ helpers as numpy arrays, and the same arrays go to both packages. Held to:
   within 1e-4 relative; the fused_bf16 estimates within that JAX test's
   bf16 tolerances (test_acquire_fused.py:146-160);
 - one ``Receiver.receive`` a bf16 backend against the JAX receiver on the
-  same samples: flags, lengths and bytes equal, and the payloads;
+  same samples: flags, lengths and bytes equal, and the payloads; and
+  fused_bf16 once more at ``acquisition_fft_size=4096``;
 - a bank of bursts followed by exact silence through both fused backends:
   every detection equal to the JAX acquirer's, the extra detections that
   the bf16 form makes in the silent tail included.
@@ -55,6 +58,9 @@ from gr4_packet_modem_tpu_torch.ops.acquire import (  # noqa: E402
     acquirer_tables,
 )
 from gr4_packet_modem_tpu_torch.ops.acquire_cuda import (  # noqa: E402
+    STREAM_CHUNK_K,
+    STREAM_COLS,
+    STREAM_FFT_SIZES,
     WGMMA_FFT_SIZES,
     bf16_tables,
     dft_tables,
@@ -62,6 +68,7 @@ from gr4_packet_modem_tpu_torch.ops.acquire_cuda import (  # noqa: E402
     fused_best_power,
     fused_best_power_bf16_plain,
     replica_table_bf16,
+    stream_kprime,
 )
 from gr4_packet_modem_tpu_torch.utils.stimulus import burst_samples  # noqa: E402
 from test_acquire_fused import _multi_burst_signal  # noqa: E402
@@ -89,15 +96,18 @@ def test_tables_equal_jax_bit_for_bit(fft_size, bins):
     assert tables["conv_kernel"].shape == (jacq.sync_len, 2, 2 * (2 * bins + 1))
 
 
-def test_bf16_plain_matches_jax_kernel():
-    """One block of frames of noise with three syncwords at 10 dB."""
-    n, fpad = 2048, 16
-    jacq = JAcquirer(JConfig(freq_bins=4, fft_size=n, backend="fused_bf16"))
+@pytest.mark.parametrize("n,bins", [(2048, 4), (4096, 2), (8192, 2)])
+def test_bf16_plain_matches_jax_kernel(n, bins):
+    """One block of frames of noise with three syncwords at 10 dB, at each
+    size the kernel takes (9 bins at N=2048, 5 at 4096 and 8192)."""
+    fpad = 16
+    jacq = JAcquirer(JConfig(freq_bins=bins, fft_size=n, backend="fused_bf16"))
     s = jacq.stride
     rng = np.random.default_rng(12)
     t = (fpad + 1) * s + n
     x = 0.1 * (rng.standard_normal(t) + 1j * rng.standard_normal(t))
-    for start, b in ((3 * s + 100, 1), (7 * s + 1500, 4), (12 * s + 17, 8)):
+    nb = len(jacq.replicas)
+    for start, b in ((3 * s + 100, 1), (7 * s + 1500, 4 % nb), (12 * s + 17, 8 % nb)):
         x[start : start + jacq.sync_len] += 0.3 * jacq.replicas[b]
     x = x.astype(np.complex64)
     views = [np.array(v) for v in jacq._frames_planes(jnp.asarray(x), fpad)]
@@ -123,7 +133,20 @@ def test_bf16_plain_matches_jax_kernel():
     assert torch.equal(pp, tp) and torch.equal(pb, tb)
 
 
-@pytest.mark.parametrize("n", [2048, 8192])
+def _kernel_constants(src: str, begin: str, end: str, **known) -> dict:
+    """The ``constexpr int`` constants between ``begin`` and ``end`` in a
+    kernel source, evaluated in order (C's ``a ? b : c`` and integer
+    division included) with ``known`` values and the earlier ones."""
+    start = src.index(begin)
+    part = src[start:src.index(end, start)]
+    consts = dict(known)
+    for name, expr in re.findall(r"constexpr int (k\w+) = ([^;]+);", part):
+        expr = re.sub(r"(.+?) \? (.+?) : (.+)", r"(\2 if \1 else \3)", expr.replace("st::", ""))
+        consts[name] = eval(expr.replace("/", "//"), {}, consts)
+    return consts
+
+
+@pytest.mark.parametrize("n", [2048, 4096, 8192])
 def test_bf16_kernel_tables_layout(n):
     """The host tables of ``csrc/correlate_bf16.cu`` read back through the
     kernel's layouts give the TPU kernel's bf16-rounded factors: W2c at
@@ -131,53 +154,73 @@ def test_bf16_kernel_tables_layout(n):
     size and leading and stride byte offsets, read from its source; the
     table holds columns 0 .. 63, and column n + 64 is column n times
     (-1)^k but for rounding noise under 1e-15 where the exact value is 0),
-    at N=8192 through the mma.m16n8k16 B fragments; and the accumulator
+    at N=4096 and 8192 through the streaming kernel's chunk arithmetic (its
+    chunk size, offsets and block count, read from its source; columns 0 ..
+    N2/2 - 1, rows in the order k', the same symmetry); and the replica
     layout covers every spectrum point once."""
     t = dft_tables(n)
     tab = bf16_tables(n)
     n2 = n // 16
+    src = (Path(bf16_tables.__wrapped__.__code__.co_filename).parents[1] / "csrc" / "correlate_bf16.cu").read_text()
 
     def bf16(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16).float().numpy()
 
-    assert set(tab) == {"w2c", "small", "tw"}
-    got = np.zeros((2, n2, n2), np.float32)
-    if n in WGMMA_FFT_SIZES:
-        src = (Path(bf16_tables.__wrapped__.__code__.co_filename).parents[1] / "csrc" / "correlate_bf16.cu").read_text()
-        wg = src[src.index("namespace wg {"):src.index("}  // namespace wg")]
-        consts = {}
-        for name, expr in re.findall(r"constexpr int (k\w+) = ([^;]+);", wg):
-            consts[name] = eval(expr.replace("/", "//"), {}, dict(consts, kN1=16))
-        assert consts["kN2"] == n2 and consts["kTableBytes"] == tab["w2c"].nbytes
-        core, lbo, sbo, half = consts["kCore"], consts["kLbo"], consts["kSbo"], consts["kHalf"]
-        raw = tab["w2c"].view(np.uint8).ravel()
-        p, k, c = np.indices((2, n2, half))  # part, row (k2), column (n2)
-        # table_desc: plane p at half / 8 column blocks of sbo bytes, then
-        # the column block and row block, then 16 bytes a column, 2 a row
-        byte = (p * (half // 8) + c // 8) * sbo + (k // 8) * lbo + (c % 8) * 16 + (k % 8) * 2
-        assert core == 128 and lbo == core and half == n2 // 2 and byte.max() + 2 == raw.size
-        assert np.array_equal(np.sort(byte.ravel()), np.arange(0, raw.size, 2))
-        bits = raw[byte].astype(np.uint32) | (raw[byte + 1].astype(np.uint32) << 8)
-        lo = (bits << 16).view(np.float32)
-        # the kernel's columns 64 and up: W2c[k][n + 64] = (-1)^k W2c[k][n],
-        # bit for bit but where the exact value is 0 and the float32 table
-        # holds rounding noise (under 1e-15 both ways)
+    def halves(lo, half):
+        """``lo`` [2, N2 (k, natural), half] against W2c's first half of
+        columns, and, times (-1)^k, its second half."""
         sign = np.where(np.arange(n2) % 2, -1.0, 1.0).astype(np.float32)[:, None]
         for part, mat in enumerate((t["w2c"].real, t["w2c"].imag)):
             want = bf16(mat)[:, half:]
             noise = np.abs(mat[:, half:]) < 1e-15
             np.testing.assert_array_equal((sign * lo[part])[~noise], want[~noise])
             assert np.abs(sign * lo[part] - want)[noise].max() < 1e-15
-        got = lo
+
+    assert set(tab) == {"w2c", "small", "tw"}
+    raw = tab["w2c"].view(np.uint8).ravel()
+    if n in WGMMA_FFT_SIZES:
+        consts = _kernel_constants(src, "namespace wg {", "}  // namespace wg", kN1=16)
+        assert consts["kN2"] == n2 and consts["kTableBytes"] == tab["w2c"].nbytes
+        core, lbo, sbo, half = consts["kCore"], consts["kLbo"], consts["kSbo"], consts["kHalf"]
+        p, k, c = np.indices((2, n2, half))  # part, row (k2), column (n2)
+        # table_desc: plane p at half / 8 column blocks of sbo bytes, then
+        # the column block and row block, then 16 bytes a column, 2 a row
+        byte = (p * (half // 8) + c // 8) * sbo + (k // 8) * lbo + (c % 8) * 16 + (k % 8) * 2
+        assert core == 128 and lbo == core and half == n2 // 2
     else:
-        words = tab["w2c"].view(np.uint32)  # [N2/8, N2/16, 32, 4]
-        assert words.shape == (n2 // 8, n2 // 16, 32, 4)
-        for w, (part, r0) in enumerate([(0, 0), (0, 8), (1, 0), (1, 8)]):
-            for half in range(2):  # the low half holds the lower row
-                vals = ((words[..., w] >> (16 * half)) & 0xFFFF).astype(np.uint32) << 16
-                nt, ks, lane = np.indices(words.shape[:3])
-                row = 16 * ks + 2 * (lane & 3) + r0 + half
-                got[part, row, 8 * nt + (lane >> 2)] = vals.view(np.float32)
+        assert n in STREAM_FFT_SIZES
+        consts = _kernel_constants(src, "namespace st {", "}  // namespace st", kN1=16)
+        consts = _kernel_constants(src, "struct Stream {", "static_assert", N2=n2, **consts)
+        cols, chunk_k, lbo, sbo = consts["kCols"], consts["kChunkK"], consts["kLbo"], consts["kChunkSbo"]
+        blocks, chunks, plane = consts["kBlocks"], consts["kChunks"], consts["kChunkPlane"]
+        assert consts["kChunkBytes"] * blocks * chunks == tab["w2c"].nbytes
+        assert (cols, chunk_k) == (STREAM_COLS, STREAM_CHUNK_K)
+        half = blocks * cols
+        p, kp, c = np.indices((2, n2, half))  # part, row (k'), column (n2)
+        # load_block's chunk (tb, kc) at (tb * chunks + kc) * kChunkBytes;
+        # stream_chunks's descriptors: part plane, then the column block and
+        # row block of the chunk, then 16 bytes a column, 2 a row
+        tb, cl, kc, kl = c // cols, c % cols, kp // chunk_k, kp % chunk_k
+        byte = ((tb * chunks + kc) * consts["kChunkBytes"] + p * plane + (cl // 8) * sbo + (kl // 8) * lbo
+                + (cl % 8) * 16 + (kl % 8) * 2)
+        assert lbo == 128 and sbo == chunk_k // 8 * 128 and half == n2 // 2
+    assert byte.max() + 2 == raw.size
+    assert np.array_equal(np.sort(byte.ravel()), np.arange(0, raw.size, 2))
+    bits = raw[byte].astype(np.uint32) | (raw[byte + 1].astype(np.uint32) << 8)
+    lo = (bits << 16).view(np.float32)
+    if n in STREAM_FFT_SIZES:  # rows in the order k' back to k
+        got = np.zeros_like(lo)
+        got[:, stream_kprime(n2)] = lo
+        lo = got
+        # the kernel's k' of a natural row (kprime) is the inverse order
+        assert "return (k & 1) * (N2 / 2) + (k >> 1);" in src
+        np.testing.assert_array_equal(stream_kprime(n2)[(np.arange(n2) & 1) * (n2 // 2) + (np.arange(n2) >> 1)],
+                                      np.arange(n2))
+    # the kernel's columns N2/2 and up: W2c[k][n + N2/2] = (-1)^k W2c[k][n],
+    # bit for bit but where the exact value is 0 and the float32 table
+    # holds rounding noise (under 1e-15 both ways)
+    halves(lo, half)
+    got = lo
     np.testing.assert_array_equal(got[0], bf16(t["w2c"].real)[:, : got.shape[2]])
     np.testing.assert_array_equal(got[1], bf16(t["w2c"].imag)[:, : got.shape[2]])
     small = tab["small"]
@@ -185,14 +228,19 @@ def test_bf16_kernel_tables_layout(n):
     np.testing.assert_array_equal(small[1, ..., 0] + 1j * small[1, ..., 1], bf16(t["w1c"].real) + 1j * bf16(t["w1c"].imag))
     np.testing.assert_array_equal(tab["tw"][0, ..., 0] + 1j * tab["tw"][0, ..., 1], t["twf"][:, 0])
     np.testing.assert_array_equal(tab["tw"][1, ..., 0] + 1j * tab["tw"][1, ..., 1], t["tw"][:, 0])
-    idx = fragment_index(n)
-    assert idx.shape == (n2 // 8, 32, 4)
-    np.testing.assert_array_equal(np.sort(idx.ravel()), np.arange(n))
     rf = np.random.default_rng(n).standard_normal((2, 3, n)).astype(np.float32)
     table = replica_table_bf16(torch.from_numpy(rf[0]), torch.from_numpy(rf[1]), n).numpy()
-    assert table.shape == (3, n2 // 8, 2, 32, 4)
-    np.testing.assert_array_equal(table[:, :, 0], rf[0][:, idx])
-    np.testing.assert_array_equal(table[:, :, 1], rf[1][:, idx])
+    if n in WGMMA_FFT_SIZES:
+        idx = fragment_index(n)
+        assert idx.shape == (n2 // 8, 32, 4) and table.shape == (3, n2 // 8, 2, 32, 4)
+        np.testing.assert_array_equal(table[:, :, 0], rf[0][:, idx])
+        np.testing.assert_array_equal(table[:, :, 1], rf[1][:, idx])
+    else:  # R_b[k1, k2] = rf[b, k1 + 16 k2], k2 in the order k'
+        idx = np.arange(16)[:, None] + 16 * stream_kprime(n2)[None, :]
+        assert table.shape == (3, 16, n2, 2)
+        np.testing.assert_array_equal(table[..., 0], rf[0][:, idx])
+        np.testing.assert_array_equal(table[..., 1], rf[1][:, idx])
+    np.testing.assert_array_equal(np.sort(idx.ravel()), np.arange(n))
 
 
 @pytest.mark.parametrize("n", [2048, 4096, 8192])
@@ -278,6 +326,32 @@ def test_receive_equals_jax(backend):
     x = (x + 0.05 * (rng.standard_normal(x.size) + 1j * rng.standard_normal(x.size))).astype(np.complex64)
     kw = dict(max_payload_len=64, max_detections=8, freq_bins=2, payload_carrier="vv",
               acquisition_backend=backend)
+    want = JReceiver(JRxConfig(**kw, use_pallas=False)).receive(x)
+    got = Receiver(RxConfig(**kw), "cpu").receive(x)
+    acc = np.asarray(want.accepted)
+    np.testing.assert_array_equal(got.accepted.numpy(), acc)
+    np.testing.assert_array_equal(got.crc_ok.numpy(), np.asarray(want.crc_ok))
+    np.testing.assert_array_equal(got.lengths.numpy()[acc], np.asarray(want.lengths)[acc])
+    np.testing.assert_array_equal(got.data.numpy()[acc], np.asarray(want.data)[acc])
+    rows = np.nonzero(acc)[0]
+    assert rows.size == len(payloads)
+    for row, p in zip(rows, payloads):
+        np.testing.assert_array_equal(got.data.numpy()[row, : p.size], p)
+
+
+def test_receive_fft4096_fused_bf16_equals_jax():
+    """``test_receive_equals_jax``'s bursts through both receivers with
+    ``acquisition_fft_size=4096`` and fused_bf16 acquisition (K1's bf16
+    form at the streaming kernel's size): flags, lengths and bytes equal."""
+    rng = np.random.default_rng(21)
+    payloads = [rng.integers(0, 256, n, dtype=np.uint8) for n in (40, 64, 25)]
+    gap = np.zeros(700, np.complex64)
+    x = np.concatenate([np.concatenate([gap, burst_samples(p, packet_index=i)])
+                        for i, p in enumerate(payloads)] + [gap])
+    x = x * np.exp(1j * 0.003 * np.arange(x.size))
+    x = (x + 0.05 * (rng.standard_normal(x.size) + 1j * rng.standard_normal(x.size))).astype(np.complex64)
+    kw = dict(max_payload_len=64, max_detections=8, freq_bins=2, payload_carrier="vv",
+              acquisition_backend="fused_bf16", acquisition_fft_size=4096)
     want = JReceiver(JRxConfig(**kw, use_pallas=False)).receive(x)
     got = Receiver(RxConfig(**kw), "cpu").receive(x)
     acc = np.asarray(want.accepted)

@@ -172,6 +172,24 @@ def test_correlate_bf16_ragged_frames(dev, fpad):
     _bf16_against_plain(dev, 2048, fpad, 9)
 
 
+@pytest.mark.parametrize("n", [4096, 8192])
+@pytest.mark.parametrize("fpad", [1, 3, "resident-1", "resident+3"])
+def test_correlate_bf16_stream_ragged_frames(dev, n, fpad):
+    """K1's bf16 form at N=4096 and 8192 (the streaming wgmma kernel) on
+    frame counts whose last group of four is ragged or alone, and one fewer
+    and three more than the card holds in flight at once (its frames an SM
+    from ``bf16_kernel_resources`` times the SMs), under the gate of
+    ``test_correlate_bf16_matches_plain``."""
+    from gr4_packet_modem_tpu_torch.ops.acquire_cuda import bf16_kernel_resources
+
+    if isinstance(fpad, str):
+        res = bf16_kernel_resources(n)
+        resident = res["frames_per_sm"] * torch.cuda.get_device_properties(dev).multi_processor_count
+        assert resident > 0
+        fpad = resident - 1 if fpad == "resident-1" else resident + 3
+    _bf16_against_plain(dev, n, fpad, 9)
+
+
 def _bf16_against_plain(dev, n, fpad, nb):
     from gr4_packet_modem_tpu_torch.ops.acquire_cuda import bf16_bin_powers, fused_best_power
 
@@ -227,6 +245,47 @@ def test_bank_step_fused_bf16_decodes(dev):
             got = [data[c, i, :1500] for i in np.nonzero(acc[c])[0]]
             assert len(got) == 3 and all(np.array_equal(a, b) for a, b in zip(got, payloads))
     assert launches["correlate_bf16"] == 1 and launches["correlate"] == 0, launches
+    a, b = rows["fused"], rows["fused_bf16"]
+    assert torch.equal(a.valid, b.valid)
+    for f in ("index", "freq_bin"):
+        assert torch.equal(getattr(a, f)[a.valid], getattr(b, f)[b.valid])
+
+
+def test_bank_step_fused_bf16_fft4096_decodes(dev):
+    """``test_bank_step_fused_bf16_decodes``'s noisy bank through
+    ``bank_step`` with ``acquisition_fft_size=4096`` (K1's bf16 form in the
+    streaming kernel): every packet byte-exact, the fused backend's
+    detections at the same size, K1's bf16 form launched once and its
+    float32 form not."""
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver, RxConfig
+    from gr4_packet_modem_tpu_torch.utils.stimulus import burst_samples
+
+    rng = np.random.default_rng(4)
+    payloads = [rng.integers(0, 256, 1500, dtype=np.uint8) for _ in range(3)]
+    stream = np.concatenate([burst_samples(p, packet_index=i) for i, p in enumerate(payloads)])
+    rows, launches = {}, {}
+    for backend in ("fused", "fused_bf16"):
+        rx = Receiver(RxConfig(max_payload_len=1536, max_detections=8, payload_carrier="vv",
+                               acquisition_backend=backend, acquisition_fft_size=4096), dev)
+        fp, pt = rx.front_pad, rx.pad_tail()
+        x = torch.zeros(4, fp + stream.size + pt, dtype=torch.complex64, device=dev)
+        rot = torch.exp(1j * 0.1 * torch.arange(4, dtype=torch.float64)).to(torch.complex64)
+        x[:, fp : fp + stream.size] = torch.from_numpy(stream).to(dev) * rot.to(dev)[:, None]
+        noise = np.random.default_rng(5).standard_normal((2, *x.shape)).astype(np.float32)
+        x += 0.05 * torch.complex(*torch.from_numpy(noise).to(dev))
+        _build.reset_launch_counts()
+        det, _, res, _ = rx.bank_step(x, 0)
+        torch.cuda.synchronize()
+        launches[backend] = _build.launch_counts()
+        rows[backend] = det
+        acc = res.accepted.view(4, -1).cpu().numpy()
+        data = res.data.view(4, acc.shape[1], -1).cpu().numpy()
+        for c in range(4):
+            got = [data[c, i, :1500] for i in np.nonzero(acc[c])[0]]
+            assert len(got) == 3 and all(np.array_equal(a, b) for a, b in zip(got, payloads))
+    got = launches["fused_bf16"]
+    assert got["correlate_bf16"] == 1 and got["correlate"] == 0, got
+    assert launches["fused"]["correlate"] == 1, launches["fused"]
     a, b = rows["fused"], rows["fused_bf16"]
     assert torch.equal(a.valid, b.valid)
     for f in ("index", "freq_bin"):

@@ -21,7 +21,13 @@ K1's bf16 form at N=2048: the register-A step (``bf16(Y * R_b)`` packed
 from the forward accumulators' fragments straight into wgmma's A
 fragments) is held against the ``[16, N2]`` product, and the persistent
 walk (``acquire_cuda.persistent_walk``, its constants read from the
-kernel's source) against every frame once.
+kernel's source) against every frame once. At N=4096 and 8192 the
+streaming kernel's walk and table loads (``acquire_cuda.stream_plan``,
+its constants and loop bounds read from the kernel's source): every
+frame's forward pass once and every (frame, bin) once, every table block
+once a pass and in order, each product finding its own block in the
+stages at its barrier parity, and no copy started after a block's last
+product.
 """
 
 import re
@@ -35,6 +41,10 @@ torch = pytest.importorskip("torch")
 from gr4_packet_modem_tpu_torch.ops.acquire_cuda import (  # noqa: E402
     KERNEL_FFT_SIZES,
     POINTS,
+    STREAM_CHUNK_K,
+    STREAM_COLS,
+    STREAM_FFT_SIZES,
+    STREAM_FRAMES,
     WG_FRAMES,
     WG_GROUPS,
     WGMMA_FFT_SIZES,
@@ -46,6 +56,7 @@ from gr4_packet_modem_tpu_torch.ops.acquire_cuda import (  # noqa: E402
     persistent_walk,
     replica_table,
     replica_table_bf16,
+    stream_plan,
 )
 from gr4_packet_modem_tpu_torch.ops import fetch_cuda, ldpc, ldpc_cuda  # noqa: E402
 from gr4_packet_modem_tpu_torch.ops.matched_cuda import matched_filter_plain  # noqa: E402
@@ -537,3 +548,75 @@ def test_k1_bf16_walk_constants_are_the_kernels():
     assert [16 * int(consts["kN2"])] == list(WGMMA_FFT_SIZES)
     assert "const int groups = (fpad + kFrames - 1) / kFrames;" in src
     assert "grp = blockIdx.x * kGroups + (warp >> 2); grp < groups; grp += gridDim.x * kGroups" in src
+
+
+# ------------------------------------- K1's bf16 form at 4096, 8192 (streamed)
+
+
+def _stream_source() -> str:
+    return (Path(fetch_cuda.__file__).parents[1] / "csrc" / "correlate_bf16.cu").read_text()
+
+
+# the H100's SMs at the streaming kernel's resident blocks
+H100_STREAM_RESIDENT = {4096: 2 * 132, 8192: 132}
+
+
+@pytest.mark.parametrize("n", STREAM_FFT_SIZES)
+@pytest.mark.parametrize("fpad,nb", [(1, 9), (3, 1), (7, 5), (37, 9), (9, 4), (4 * 264 + 5, 9), (5120, 9)])
+def test_k1_stream_plan_covers_every_frame_and_table_block(n, fpad, nb):
+    """Every frame's forward pass once and every (frame, bin) once in the
+    walk, no more blocks than are resident and none without a group; each
+    pass takes the table blocks once and in order; each product finds its
+    own table block loaded (the kernel's next-block rule gives the next
+    product's), waits for its stages' phase of the parity its count gives,
+    and the last product of a block starts no copy."""
+    resident = H100_STREAM_RESIDENT[n]
+    plan = stream_plan(fpad, resident, nb, n)
+    blocks_tb = n // 16 // 2 // STREAM_COLS
+    assert 0 < len(plan) <= resident and len(plan) == min(resident, -(-fpad // STREAM_FRAMES))
+    forward, pairs = [], []
+    for block in plan:
+        passes, products, loads = block["passes"], block["products"], block["loads"]
+        assert passes[0][0] == "forward"
+        for kind, frames, bins in passes:
+            if kind == "forward":
+                forward += frames
+                assert len(frames) <= STREAM_FRAMES
+            else:
+                assert len(frames) == 1 and 0 < len(bins) <= 4
+                pairs += [(frames[0], b) for b in bins]
+        count = len(passes) * blocks_tb
+        np.testing.assert_array_equal(products[:, 0], np.repeat(np.arange(len(passes)), blocks_tb))
+        np.testing.assert_array_equal(products[:, 1], np.tile(np.arange(blocks_tb), len(passes)))
+        # the stages hold what the last load brought: product p's own block
+        assert len(loads) == count
+        np.testing.assert_array_equal(loads, products[:, 1])
+        # phases: product p is the (p + 1)-th completion of each stage
+        np.testing.assert_array_equal(products[:, 2], np.arange(count) & 1)
+    np.testing.assert_array_equal(np.sort(forward), np.arange(fpad))
+    assert sorted(pairs) == [(f, b) for f in range(fpad) for b in range(nb)]
+
+
+def test_k1_stream_constants_are_the_kernels():
+    """The plan's chunk rows, columns and frames a group are
+    csrc/correlate_bf16.cu's, and the kernel walks, loads its table blocks
+    and waits on its stages as ``stream_plan`` models them."""
+    src = _stream_source()
+    ns = src[src.index("namespace st {"):src.index("}  // namespace st")]
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", ns))
+    assert int(consts["kCols"]) == STREAM_COLS and int(consts["kChunkK"]) == STREAM_CHUNK_K
+    assert int(consts["kFrames"]) == STREAM_FRAMES
+    for line in (
+        "for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {",
+        "const int nbg = (nb + 3) / 4;",
+        "load_block<N2>(smem_u32(stages), full, table, 0, threadIdx.x == 0);",
+        "const uint32_t parity = i & 1;",
+        "mbar_wait(&full[kc], parity);",
+        "stream_product<N2, true>(acc, a_area, stages_u32, full, i, table, (tb + 1) % S::kBlocks,",
+        "stream_product<N2, false>(acc, a_area, stages_u32, full, i, table, (tb + 1) % S::kBlocks,",
+        "const bool more = !(last_group && fr == live - 1 && bg == nbg - 1 && tb == S::kBlocks - 1);",
+        "const bool last_group = grp + static_cast<int>(gridDim.x) >= groups;",
+        "for (int fr = 0; fr < live; ++fr) {",
+        "for (int tb = 0; tb < S::kBlocks; ++tb) {",
+    ):
+        assert line in src, line
