@@ -35,6 +35,7 @@ from torch import nn
 
 from ..utils import constants as C
 from ..utils.firdes import rx_rrc_taps
+from ..utils.trace import next_step, span
 
 from ..ops.acquire import AcquisitionConfig, Detections, SyncwordAcquirer
 from ..ops.costas import PI, TWO_PI
@@ -346,33 +347,37 @@ class Receiver(nn.Module):
         """Decode the header of every detection. ``x`` carries ``front_pad``
         zeros in front (indices are relative to ``x``). Returns
         ``(HeaderResult, corrected sync+header symbols [D, 192])``."""
-        arm, n_base, phase0 = self._timing(det)
-        amp_scale = 1.0 / torch.clamp(det.amplitude, min=1e-9)
-        syms = self._extract_symbols(
-            x, n_base, arm, det.freq, det.index, amp_scale, 0,
-            _HEADER_REGION_SYMS, chan,
-        )
-        # wipe off the syncword modulation -> pure pilot
-        syms[:, : C.SYNCWORD_LEN] *= self.sync_bipolar
-        corrected, ph_end, fr_end = costas_track(
-            syms, phase0.contiguous(), torch.zeros_like(phase0), offset=0
-        )
-        hdr_syms = corrected[:, C.SYNCWORD_LEN :]  # [D, 128]
-        llrs = torch.view_as_real(hdr_syms).reshape(
-            hdr_syms.shape[0], -1
-        ) * self.llr_scale
-        comb = combine_repetition(descramble_soft(llrs, self.ks_header)).contiguous()
-        bits, ldpc_ok = self.header_decoder.decode(comb)
-        hdr_bytes = pack_bits(bits, 8)  # [D, 4]
-        packet_length = hdr_bytes[:, 0] << 8 | hdr_bytes[:, 1]
-        type_field = hdr_bytes[:, 2]
-        header_ok = (
-            ldpc_ok
-            & det.valid
-            & (packet_length > 0)
-            & (type_field <= 1)
-            & (packet_length <= self.config.max_payload_len)
-        )
+        with span("rx.headers", x.device):
+            with span("rx.headers.extract"):
+                arm, n_base, phase0 = self._timing(det)
+                amp_scale = 1.0 / torch.clamp(det.amplitude, min=1e-9)
+                syms = self._extract_symbols(
+                    x, n_base, arm, det.freq, det.index, amp_scale, 0,
+                    _HEADER_REGION_SYMS, chan,
+                )
+            with span("rx.headers.costas"):
+                # wipe off the syncword modulation -> pure pilot
+                syms[:, : C.SYNCWORD_LEN] *= self.sync_bipolar
+                corrected, ph_end, fr_end = costas_track(
+                    syms, phase0.contiguous(), torch.zeros_like(phase0), offset=0
+                )
+            with span("rx.headers.ldpc"):
+                hdr_syms = corrected[:, C.SYNCWORD_LEN :]  # [D, 128]
+                llrs = torch.view_as_real(hdr_syms).reshape(
+                    hdr_syms.shape[0], -1
+                ) * self.llr_scale
+                comb = combine_repetition(descramble_soft(llrs, self.ks_header)).contiguous()
+                bits, ldpc_ok = self.header_decoder.decode(comb)
+                hdr_bytes = pack_bits(bits, 8)  # [D, 4]
+                packet_length = hdr_bytes[:, 0] << 8 | hdr_bytes[:, 1]
+                type_field = hdr_bytes[:, 2]
+                header_ok = (
+                    ldpc_ok
+                    & det.valid
+                    & (packet_length > 0)
+                    & (type_field <= 1)
+                    & (packet_length <= self.config.max_payload_len)
+                )
         hdr = HeaderResult(
             packet_length=packet_length,
             packet_type=type_field,
@@ -390,13 +395,14 @@ class Receiver(nn.Module):
     def filter_detections(self, det: Detections, hdr: HeaderResult) -> torch.Tensor:
         """Suppress detections that start inside an earlier kept packet's
         extent. ``det``/``hdr`` rows are ``[D]`` or ``[C, D]``."""
-        extent = packet_extent_samples(
-            hdr.packet_length.reshape(det.index.shape),
-            hdr.header_ok.reshape(det.index.shape),
-            self.config.samples_per_symbol,
-        )
-        busy0 = torch.full(det.index.shape[:-1], -1, device=det.index.device)
-        _, keep = suppress_overlapping(det.index, det.valid, extent, busy0)
+        with span("rx.suppress", det.index.device):
+            extent = packet_extent_samples(
+                hdr.packet_length.reshape(det.index.shape),
+                hdr.header_ok.reshape(det.index.shape),
+                self.config.samples_per_symbol,
+            )
+            busy0 = torch.full(det.index.shape[:-1], -1, device=det.index.device)
+            _, keep = suppress_overlapping(det.index, det.valid, extent, busy0)
         return keep
 
     # ------------------------------------------------------------ bank decode
@@ -428,11 +434,13 @@ class Receiver(nn.Module):
         of ``x``; otherwise (``group=0`` among them) as one batch. The rows
         come out in the same order either way."""
         c = x.shape[0]
-        if not (0 < group < c and c % group == 0):
-            return self.decode_bank(x, self.acquirer.acquire(x))
-        return flatten_grouped_results([
-            self.decode_bank(g, self.acquirer.acquire(g)) for g in x.split(group)
-        ])
+        next_step()
+        with span("rx.step", x.device):
+            if not (0 < group < c and c % group == 0):
+                return self.decode_bank(x, self.acquirer.acquire(x))
+            return flatten_grouped_results([
+                self.decode_bank(g, self.acquirer.acquire(g)) for g in x.split(group)
+            ])
 
     # -------------------------------------------- feed-forward carrier track
 
@@ -479,51 +487,55 @@ class Receiver(nn.Module):
     ) -> PayloadResult:
         cfg = self.config
         s_pay = cfg.max_payload_syms
-        syms = self._extract_symbols(
-            x, hdr.n_base, hdr.arm, det.freq, det.index, hdr.amp_scale,
-            _HEADER_REGION_SYMS, s_pay, chan,
-        )
-        if cfg.payload_carrier == "vv":
-            corrected = self._vv_track(syms, hdr.phase, hdr.freq)
-        else:
-            corrected, _, _ = costas_track(
-                syms, hdr.phase, hdr.freq, offset=_HEADER_REGION_SYMS
-            )
-        llrs = torch.view_as_real(corrected).reshape(
-            corrected.shape[0], -1
-        ) * self.llr_scale  # [D, 2*s_pay]
-        bits = binary_slice(descramble_soft(llrs, self.ks_payload))  # invert=true slicer
-        all_bytes = pack_bits(bits, 8).to(torch.uint8)  # [D, s_pay/4]
-        plen = hdr.packet_length
-        pos = torch.arange(cfg.max_payload_len, device=x.device)
-        payload = torch.where(
-            pos[None, :] < plen[:, None], all_bytes[:, : cfg.max_payload_len], 0
-        )
-        crc = crc32_compute(
-            payload, torch.clamp(plen, 0, cfg.max_payload_len),
-            self.crc_g_packed, self.crc_init_lut, self.crc_final_xor,
-        )
-        # received CRC: the 4 bytes at plen..plen+4, big-endian
-        plen_c = torch.clamp(plen, 0, all_bytes.shape[1] - C.CRC_NUM_BYTES)
-        at = plen_c[:, None] + torch.arange(C.CRC_NUM_BYTES, device=x.device)
-        rx_bytes = all_bytes.gather(1, at).to(torch.int64)
-        crc_rx = (
-            rx_bytes[:, 0] << 24 | rx_bytes[:, 1] << 16 | rx_bytes[:, 2] << 8
-            | rx_bytes[:, 3]
-        )
-        # suppressed or invalid slots hold garbage extractions and must not
-        # report a coincidental CRC pass
-        crc_ok = (crc == crc_rx) & keep
-        accepted = (
-            keep
-            & hdr.header_ok
-            & crc_ok
-            & (hdr.packet_type == int(C.PacketType.USER_DATA))
-        )
-        if cfg.keep_payload_symbols:
-            symbols = torch.view_as_real(corrected)
-        else:
-            symbols = corrected.new_zeros(corrected.shape[0], 0, 2, dtype=torch.float32)
+        with span("rx.payload", x.device):
+            with span("rx.payload.extract"):
+                syms = self._extract_symbols(
+                    x, hdr.n_base, hdr.arm, det.freq, det.index, hdr.amp_scale,
+                    _HEADER_REGION_SYMS, s_pay, chan,
+                )
+            with span("rx.payload.carrier"):
+                if cfg.payload_carrier == "vv":
+                    corrected = self._vv_track(syms, hdr.phase, hdr.freq)
+                else:
+                    corrected, _, _ = costas_track(
+                        syms, hdr.phase, hdr.freq, offset=_HEADER_REGION_SYMS
+                    )
+            with span("rx.payload.crc"):
+                llrs = torch.view_as_real(corrected).reshape(
+                    corrected.shape[0], -1
+                ) * self.llr_scale  # [D, 2*s_pay]
+                bits = binary_slice(descramble_soft(llrs, self.ks_payload))  # invert=true slicer
+                all_bytes = pack_bits(bits, 8).to(torch.uint8)  # [D, s_pay/4]
+                plen = hdr.packet_length
+                pos = torch.arange(cfg.max_payload_len, device=x.device)
+                payload = torch.where(
+                    pos[None, :] < plen[:, None], all_bytes[:, : cfg.max_payload_len], 0
+                )
+                crc = crc32_compute(
+                    payload, torch.clamp(plen, 0, cfg.max_payload_len),
+                    self.crc_g_packed, self.crc_init_lut, self.crc_final_xor,
+                )
+                # received CRC: the 4 bytes at plen..plen+4, big-endian
+                plen_c = torch.clamp(plen, 0, all_bytes.shape[1] - C.CRC_NUM_BYTES)
+                at = plen_c[:, None] + torch.arange(C.CRC_NUM_BYTES, device=x.device)
+                rx_bytes = all_bytes.gather(1, at).to(torch.int64)
+                crc_rx = (
+                    rx_bytes[:, 0] << 24 | rx_bytes[:, 1] << 16 | rx_bytes[:, 2] << 8
+                    | rx_bytes[:, 3]
+                )
+                # suppressed or invalid slots hold garbage extractions and must not
+                # report a coincidental CRC pass
+                crc_ok = (crc == crc_rx) & keep
+                accepted = (
+                    keep
+                    & hdr.header_ok
+                    & crc_ok
+                    & (hdr.packet_type == int(C.PacketType.USER_DATA))
+                )
+            if cfg.keep_payload_symbols:
+                symbols = torch.view_as_real(corrected)
+            else:
+                symbols = corrected.new_zeros(corrected.shape[0], 0, 2, dtype=torch.float32)
         return PayloadResult(
             data=payload, lengths=plen, crc_ok=crc_ok, accepted=accepted,
             symbols=symbols,
@@ -555,6 +567,7 @@ class Receiver(nn.Module):
         overlapping detections, decode payloads. Rows are aligned with the
         sorted detections; ``accepted`` marks decoded user packets."""
         x = self.pad(samples)
+        next_step()
         det = self.acquirer.acquire(x)
         hdr, _ = self.decode_headers(x, det)
         keep = self.filter_detections(det, hdr)

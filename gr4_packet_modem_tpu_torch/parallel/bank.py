@@ -46,6 +46,7 @@ from ..models.receiver import (
     packet_extent_samples,
     suppress_overlapping,
 )
+from ..utils.trace import span
 
 __all__ = [
     "BankConfig", "ReceiverBank", "make_mesh", "sharded_group_decode",
@@ -92,17 +93,18 @@ def sharded_group_decode(
     detf, chan = flatten_detections(det)
     hdr, _ = rx.decode_headers(g_ext, detf, chan)
     g = g_ext.shape[0]
-    extent = packet_extent_samples(
-        hdr.packet_length, hdr.header_ok, rx.config.samples_per_symbol
-    ).view(g, dd)
-    # shard k's rows land at [k*D, (k+1)*D): fresh windows are disjoint and
-    # ascending and each shard's rows are index-sorted with the invalid ones
-    # last (never claiming), so the concatenation is sorted where valid
-    meta = torch.stack([det.index + shard_pos, det.valid.to(torch.int64), extent.to(torch.int64)])
-    all_idx, all_valid, all_ext = gather_along(meta, time_group, dim=2)
-    busy_end, keep_all = suppress_overlapping(all_idx, all_valid.bool(), all_ext, g_busy0)
-    t = dist.get_rank(time_group)
-    keep = keep_all[:, t * dd : (t + 1) * dd].reshape(-1)
+    with span("rx.suppress", g_ext.device):  # the time shards' exchange included
+        extent = packet_extent_samples(
+            hdr.packet_length, hdr.header_ok, rx.config.samples_per_symbol
+        ).view(g, dd)
+        # shard k's rows land at [k*D, (k+1)*D): fresh windows are disjoint and
+        # ascending and each shard's rows are index-sorted with the invalid ones
+        # last (never claiming), so the concatenation is sorted where valid
+        meta = torch.stack([det.index + shard_pos, det.valid.to(torch.int64), extent.to(torch.int64)])
+        all_idx, all_valid, all_ext = gather_along(meta, time_group, dim=2)
+        busy_end, keep_all = suppress_overlapping(all_idx, all_valid.bool(), all_ext, g_busy0)
+        t = dist.get_rank(time_group)
+        keep = keep_all[:, t * dd : (t + 1) * dd].reshape(-1)
     res = rx.decode_payloads(g_ext, detf, hdr, keep, chan)
     # valid is fresh-window restricted already; keep makes it the row's
     # final verdict

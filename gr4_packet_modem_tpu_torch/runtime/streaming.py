@@ -64,6 +64,7 @@ from ..ops.fir import stream_interpolating_fir
 from ..utils import constants as C
 from ..utils.cplx import planes_to_complex, to_transfer_planes, wire_dtype
 from ..utils.ragged import PacketBatch, ragged_concat
+from ..utils.trace import next_step, span
 
 __all__ = [
     "StreamingReceiver", "StreamingBank", "StreamingTransmitter", "PacketToStream",
@@ -258,7 +259,10 @@ class StreamingBank:
         self._carry = np.zeros((self.channels, 0), np.complex64)  # int4: an unpaired sample
         self.overflow_blocks = 0  # blocks whose acquisition saturated
         self.budget_overflow_blocks = 0  # blocks whose result wire saturated
-        self.stats = {"h2d_s": 0.0, "dispatch_s": 0.0, "materialize_s": 0.0, "blocks": 0}
+        # h2d_s: staging, the wait for a free staging slot, and launching
+        # the copy; stage_s and slot_wait_s are its first two parts
+        self.stats = {"h2d_s": 0.0, "stage_s": 0.0, "slot_wait_s": 0.0, "dispatch_s": 0.0,
+                      "materialize_s": 0.0, "blocks": 0}
         # host rings (pinned on a CUDA device), one slot more than the
         # blocks in flight; a slot's event marks its last copy done. The
         # samples are converted straight into the staging slots, so the
@@ -319,12 +323,13 @@ class StreamingBank:
         det = rx.acquirer.acquire(buf, fresh_lo=self.fp, fresh_hi=self.fp + self.block)
         detf, chan = flatten_detections(det)
         hdr, hdr_syms = rx.decode_headers(buf, detf, chan)
-        extent = packet_extent_samples(
-            hdr.packet_length, hdr.header_ok, rx.config.samples_per_symbol
-        )
-        busy_end, keep = suppress_overlapping(
-            det.index, det.valid, extent.view(-1, dd), busy0
-        )
+        with span("rx.suppress", buf.device):
+            extent = packet_extent_samples(
+                hdr.packet_length, hdr.header_ok, rx.config.samples_per_symbol
+            )
+            busy_end, keep = suppress_overlapping(
+                det.index, det.valid, extent.view(-1, dd), busy0
+            )
         res = rx.decode_payloads(buf, detf, hdr, keep.reshape(-1), chan)
         out = (
             detf.index, res.lengths, hdr.packet_type, detf.esn0_db, detf.freq,
@@ -399,10 +404,16 @@ class StreamingBank:
         t0 = time.perf_counter()
         i = self.stats["blocks"] % len(self._stage)
         if self._fill == 0 and self._stage_done[i] is not None:
-            self._stage_done[i].synchronize()  # its last h2d copy is done
-        self._stage_piece(i, self._fill, piece)
+            with span("stream.slot_wait"):
+                self._stage_done[i].synchronize()  # its last h2d copy is done
+        t1 = time.perf_counter()
+        with span("stream.stage"):
+            self._stage_piece(i, self._fill, piece)
+        wait, stage = t1 - t0, time.perf_counter() - t1
         self._fill += piece.shape[1]
-        self.stats["h2d_s"] += time.perf_counter() - t0
+        self.stats["slot_wait_s"] += wait
+        self.stats["stage_s"] += stage
+        self.stats["h2d_s"] += wait + stage
         if self._fill < self.block:
             return []
         self._fill = 0
@@ -413,15 +424,18 @@ class StreamingBank:
         dispatch the step, start the results' copy back, and materialise
         the blocks more than ``pipeline_depth`` behind."""
         t0 = time.perf_counter()
-        planes = self._stage[i].to(self.device, non_blocking=True)
-        self._stage_done[i] = self._record()
+        with span("stream.h2d"):
+            planes = self._stage[i].to(self.device, non_blocking=True)
+            self._stage_done[i] = self._record()
         self.stats["h2d_s"] += time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        self._abs_offset += self.block
-        packed, syms = self._step(planes)
-        self._wire[i].copy_(packed, non_blocking=True)
-        self._inflight.append((i, self._record(), self._abs_offset, syms))
+        next_step()
+        with span("stream.dispatch"):
+            self._abs_offset += self.block
+            packed, syms = self._step(planes)
+            self._wire[i].copy_(packed, non_blocking=True)
+            self._inflight.append((i, self._record(), self._abs_offset, syms))
         self.stats["dispatch_s"] += time.perf_counter() - t0
         self.stats["blocks"] += 1
         out: list[DecodedPacket] = []
@@ -462,39 +476,40 @@ class StreamingBank:
 
     def _materialize(self, inflight) -> list[DecodedPacket]:
         t0 = time.perf_counter()
-        i, done, abs_offset, syms = inflight
-        if done is not None:
-            done.synchronize()
-        max_len = self.rx.config.max_payload_len
-        k = wire_slots(self._rows, self.result_budget)
-        cell_bytes = wire_bytes(self._rows, self.result_budget, max_len)
-        wire = self._wire[i].numpy()
-        out: list[DecodedPacket] = []
-        det_ovf = budget_ovf = False
-        for cell, chan0 in enumerate(self._cells()):
-            slots, d_ovf, b_ovf = unpack_result_wire(
-                wire[cell * cell_bytes : (cell + 1) * cell_bytes], k, max_len
-            )
-            det_ovf, budget_ovf = det_ovf or bool(d_ovf), budget_ovf or bool(b_ovf)
-            found = len(out)
-            for r in np.nonzero(slots["accepted"])[0]:
-                n = int(slots["length"][r])
-                out.append(
-                    DecodedPacket(
-                        data=slots["data"][r, :n].copy(),
-                        index=int(slots["index"][r]) + abs_offset,
-                        packet_type=int(slots["type"][r]),
-                        esn0_db=float(slots["esn0"][r]),
-                        channel=chan0 + int(slots["channel"][r]),
-                        freq=float(slots["freq"][r]),
-                        arm=int(slots["arm"][r]),
-                    )
+        with span("stream.materialize"):
+            i, done, abs_offset, syms = inflight
+            if done is not None:
+                done.synchronize()
+            max_len = self.rx.config.max_payload_len
+            k = wire_slots(self._rows, self.result_budget)
+            cell_bytes = wire_bytes(self._rows, self.result_budget, max_len)
+            wire = self._wire[i].numpy()
+            out: list[DecodedPacket] = []
+            det_ovf = budget_ovf = False
+            for cell, chan0 in enumerate(self._cells()):
+                slots, d_ovf, b_ovf = unpack_result_wire(
+                    wire[cell * cell_bytes : (cell + 1) * cell_bytes], k, max_len
                 )
-                if self.log:
-                    _log_packet(out[-1])
-            if len(out) > found and syms is not None:
-                self._send_taps(slots, syms)
-        _flag_overflows(self, det_ovf, budget_ovf)
+                det_ovf, budget_ovf = det_ovf or bool(d_ovf), budget_ovf or bool(b_ovf)
+                found = len(out)
+                for r in np.nonzero(slots["accepted"])[0]:
+                    n = int(slots["length"][r])
+                    out.append(
+                        DecodedPacket(
+                            data=slots["data"][r, :n].copy(),
+                            index=int(slots["index"][r]) + abs_offset,
+                            packet_type=int(slots["type"][r]),
+                            esn0_db=float(slots["esn0"][r]),
+                            channel=chan0 + int(slots["channel"][r]),
+                            freq=float(slots["freq"][r]),
+                            arm=int(slots["arm"][r]),
+                        )
+                    )
+                    if self.log:
+                        _log_packet(out[-1])
+                if len(out) > found and syms is not None:
+                    self._send_taps(slots, syms)
+            _flag_overflows(self, det_ovf, budget_ovf)
         self.stats["materialize_s"] += time.perf_counter() - t0
         return out
 

@@ -376,6 +376,72 @@ def test_bank_step_groups_on_card(dev):
     assert int(g2[2].accepted.sum()) == 4 * len(payloads)
 
 
+def test_bank_step_tracing_adds_no_device_operation(dev):
+    """The port's spans (``utils/trace.py``) under torch.profiler: a
+    ``bank_step`` of a four-channel bank launches the same device
+    operations and synchronises as often with program tracing on as off,
+    gives the same outputs. Every ``rx.*`` stage span has a device time
+    from its events, and every span that launches device work itself (the
+    sub-spans, ``rx.suppress``, and ``rx.step`` for the flattening between
+    stages) has a GPU-side annotation: the profiler puts each kernel in the
+    innermost span that launched it, so a stage whose work all lies in its
+    sub-spans has none of its own."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver, RxConfig
+    from gr4_packet_modem_tpu_torch.utils import trace
+    from gr4_packet_modem_tpu_torch.utils.stimulus import burst_samples
+
+    rng = np.random.default_rng(4)
+    burst = np.concatenate([burst_samples(rng.integers(0, 256, n, dtype=np.uint8), packet_index=i)
+                            for i, n in enumerate((60, 128, 9))])
+    rx = Receiver(RxConfig(max_payload_len=128, max_detections=8, freq_bins=1, payload_carrier="vv"), dev)
+    fp = rx.front_pad
+    x = torch.zeros(4, fp + 16384 + rx.pad_tail(), dtype=torch.complex64, device=dev)
+    for c in range(4):
+        x[c, fp + 50 * c : fp + 50 * c + burst.size] = torch.from_numpy(
+            (np.exp(0.3j * c) * burst).astype(np.complex64)).to(dev)
+    rx.bank_step(x, 0)
+    cuda = torch.autograd.DeviceType.CUDA
+    stages = ("rx.step", "rx.acquire", "rx.headers", "rx.suppress", "rx.payload")
+    launching = {"span:rx." + s for s in (
+        "step", "suppress", "acquire.correlate", "acquire.peaks", "acquire.estimate", "headers.extract",
+        "headers.costas", "headers.ldpc", "payload.extract", "payload.carrier", "payload.crc")}
+
+    def session(on):
+        trace.enable(on)
+        trace.reset()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = rx.bank_step(x, 0)
+            torch.cuda.synchronize()
+        trace.enable(False)
+        evs = list(prof.events())
+        ops = Counter(e.name for e in evs if e.device_type == cuda
+                      and not (getattr(e, "is_user_annotation", False) or e.name.startswith("span:")))
+        gpu_spans = {e.name for e in evs if e.device_type == cuda and e.name.startswith("span:")}
+        syncs = sum("Synchronize" in e.name for e in evs if e.device_type != cuda)
+        return ops, gpu_spans, syncs, out
+
+    try:
+        ops_off, spans_off, syncs_off, out_off = session(False)
+        ops_on, spans_on, syncs_on, out_on = session(True)
+        tot = trace.totals()["spans"]
+    finally:
+        trace.enable(False)
+        trace.reset()
+    assert sum(ops_off.values()) > 0 and ops_on == ops_off
+    assert syncs_on == syncs_off
+    assert not spans_off and spans_on == launching, spans_on
+    assert all(tot[s]["device_ms"] > 0 for s in stages), tot
+    assert int(out_on[2].accepted.sum()) == 12
+    for a, b in zip(out_off[:3], out_on[:3]):
+        for f in vars(a):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
 def test_sharded_bank_world_one_nccl(dev):
     """``StreamingShardedBank`` on a 1 x 1 NCCL mesh (one process, a
     ``tcp://`` store on localhost) gives ``StreamingBank``'s packets on the
