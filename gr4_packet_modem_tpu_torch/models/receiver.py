@@ -23,6 +23,14 @@ back into the one-batch order: acquisition and suppression are per
 channel, so every group size gives the same result. Groups bound the
 working set; at the bench geometry (64 channels of 553,396 samples) one
 batch fits the card's memory as well.
+
+On a CUDA device ``bank_step`` replays each stage (``acquire``,
+``decode_headers``, ``filter_detections``, ``decode_payloads``) from CUDA
+graphs captured the second time it sees a bank (``utils/graphs.py``;
+acquisition as two, the peak search's and the estimates'): the host then
+issues a launch or two a stage in place of its hundreds, and the outputs
+are bit-identical. The other callers of the stages run them
+eagerly; :meth:`Receiver.graph_counts` says how the steps ran.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from torch import nn
 
 from ..utils import constants as C
 from ..utils.firdes import rx_rrc_taps
+from ..utils.graphs import StepGraphs, owned, stage
 from ..utils.trace import next_step, span
 
 from ..ops.acquire import AcquisitionConfig, Detections, SyncwordAcquirer
@@ -89,15 +98,17 @@ def suppress_overlapping(
     return busy, torch.stack(keep, dim=-1)
 
 
-def flatten_detections(det: Detections) -> tuple[Detections, torch.Tensor]:
+def flatten_detections(
+    det: Detections, chan: torch.Tensor | None = None
+) -> tuple[Detections, torch.Tensor]:
     """Per-channel detections ``[C, D]`` -> one ``[C*D]`` batch (channel-
-    major rows) plus each row's channel id."""
+    major rows, views of ``det``'s) plus each row's channel id (``chan``
+    where the caller built it before). ``overflow`` stays per channel,
+    ``[C]``: the caller merges it (``.any()``) where it reads it."""
     c, dd = det.index.shape
-    chan = torch.arange(c, device=det.index.device).repeat_interleave(dd)
-    overflow = det.overflow.any()
-    detf = det.map(lambda a: a.reshape(-1))
-    detf.overflow = overflow
-    return detf, chan
+    if chan is None:
+        chan = torch.arange(c, device=det.index.device).repeat_interleave(dd)
+    return det.map(lambda a: a.reshape(-1)), chan
 
 
 @dataclass(frozen=True)
@@ -189,11 +200,14 @@ def flatten_grouped_results(parts: list[tuple]) -> tuple:
 
 class Receiver(nn.Module):
     """The receive chain; its constant tables are buffers (see
-    ``models/tables.py``)."""
+    ``models/tables.py``). ``step_graphs`` holds the captured stages of
+    :meth:`bank_step`."""
 
     def __init__(self, config: RxConfig, device: str | torch.device):
         super().__init__()
         self.config = config
+        self.step_graphs = StepGraphs()
+        self._chan_ids: dict[tuple, torch.Tensor] = {}
         sps = config.samples_per_symbol
         acq = AcquisitionConfig(
             samples_per_symbol=sps,
@@ -204,6 +218,7 @@ class Receiver(nn.Module):
             backend=config.acquisition_backend,
         )
         self.acquirer = SyncwordAcquirer(acq, device)
+        self.acquirer.step_graphs = self.step_graphs
         self.filter_delay = rx_rrc_taps(sps)[0].size - 1  # 44
         tables = receiver_tables(sps, config.num_pfb_arms, config.max_payload_len)
         for name, value in tables_from_numpy(tables).items():
@@ -224,7 +239,9 @@ class Receiver(nn.Module):
 
     def _derive_tables(self) -> None:
         """Tables computed from the carried ones: the acquirer's, the header
-        decoder's and the V&V interpolation tables."""
+        decoder's and the V&V interpolation tables. Drops the captured
+        stages, which read the tables they replace."""
+        self.step_graphs.clear()
         self.acquirer.derive_tables()
         self.header_decoder.set_tables(self.ldpc_vidx, self.ldpc_vmask, self.ldpc_h)
         dev = self.ldpc_vidx.device
@@ -254,6 +271,18 @@ class Receiver(nn.Module):
         for name, buf in bufs.items():
             buf.copy_(tables[name])
         self._derive_tables()
+
+    def _apply(self, fn, *args, **kwargs):
+        # buffers moved or cast: the captured stages read the old ones
+        self.step_graphs.clear()
+        self._chan_ids.clear()
+        return super()._apply(fn, *args, **kwargs)
+
+    def graph_counts(self) -> dict[str, int]:
+        """How this receiver's bank steps ran: steps ``captured``,
+        ``replayed`` and ``eager``, and chains ``evicted``
+        (``utils/graphs.py``)."""
+        return dict(self.step_graphs.counts)
 
     # -------------------------------------------------------------- geometry
 
@@ -341,6 +370,7 @@ class Receiver(nn.Module):
 
     # ------------------------------------------------------------ header pass
 
+    @stage
     def decode_headers(
         self, x: torch.Tensor, det: Detections, chan: torch.Tensor | None = None
     ) -> tuple[HeaderResult, torch.Tensor]:
@@ -392,6 +422,7 @@ class Receiver(nn.Module):
 
     # --------------------------------------------------- detection filtering
 
+    @stage
     def filter_detections(self, det: Detections, hdr: HeaderResult) -> torch.Tensor:
         """Suppress detections that start inside an earlier kept packet's
         extent. ``det``/``hdr`` rows are ``[D]`` or ``[C, D]``."""
@@ -415,15 +446,27 @@ class Receiver(nn.Module):
         flattened channel-major (row ``c*D + i``). ``upto`` stops early for
         stage timing: "headers" -> ``(det_flat, hdr)``, "filter" ->
         ``(det_flat, hdr, keep)``."""
-        detf, chan = flatten_detections(det)
+        # the stages' inputs at fixed addresses (as a captured step's stages
+        # read them): views of ``det``, the channel ids built once, and
+        # ``overflow`` merged only after the stages
+        detf, chan = flatten_detections(det, self._channel_ids(*det.index.shape, det.index.device))
         hdr, _ = self.decode_headers(x, detf, chan)
-        if upto == "headers":
-            return detf, hdr
-        keep = self.filter_detections(det, hdr).reshape(-1)
-        if upto == "filter":
-            return detf, hdr, keep
-        res = self.decode_payloads(x, detf, hdr, keep, chan)
-        return detf, hdr, res, keep
+        out = (detf, hdr)
+        if upto != "headers":
+            keep = self.filter_detections(det, hdr).reshape(-1)
+            out = (detf, hdr, keep)
+            if upto != "filter":
+                out = (detf, hdr, self.decode_payloads(x, detf, hdr, keep, chan), keep)
+        detf.overflow = det.overflow.any()
+        return out
+
+    def _channel_ids(self, c: int, d: int, device: torch.device) -> torch.Tensor:
+        """Each row's channel in a flattened ``[C, D]`` batch, built once
+        per ``(C, D, device)``."""
+        ids = self._chan_ids.get((c, d, device))
+        if ids is None:
+            ids = self._chan_ids[c, d, device] = torch.arange(c, device=device).repeat_interleave(d)
+        return ids
 
     def bank_step(self, x: torch.Tensor, group: int = 16):
         """Acquire (batched over channels) and decode a bank ``[C, N]``.
@@ -432,13 +475,20 @@ class Receiver(nn.Module):
         With ``0 < group < C`` and ``C % group == 0`` the channels run in
         groups of ``group``, one after another, each a contiguous row slice
         of ``x``; otherwise (``group=0`` among them) as one batch. The rows
-        come out in the same order either way."""
+        come out in the same order either way.
+
+        On a CUDA device the stages replay from CUDA graphs from the second
+        step on the same ``x`` (its address, shape and strides) and
+        ``group`` (``utils/graphs.py``); the results are the caller's
+        own either way."""
         c = x.shape[0]
         next_step()
-        with span("rx.step", x.device):
+        with span("rx.step", x.device), self.step_graphs.step(x, group) as graphed:
             if not (0 < group < c and c % group == 0):
-                return self.decode_bank(x, self.acquirer.acquire(x))
-            return flatten_grouped_results([
+                out = self.decode_bank(x, self.acquirer.acquire(x))
+                # a graphed step's outputs are its graphs' own: copy them out
+                return owned(out) if graphed else out
+            return flatten_grouped_results([  # concatenates: new tensors
                 self.decode_bank(g, self.acquirer.acquire(g)) for g in x.split(group)
             ])
 
@@ -477,6 +527,7 @@ class Receiver(nn.Module):
 
     # ----------------------------------------------------------- payload pass
 
+    @stage
     def decode_payloads(
         self,
         x: torch.Tensor,

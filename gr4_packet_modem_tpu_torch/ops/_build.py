@@ -31,7 +31,7 @@ from .costas import costas_gains
 
 __all__ = [
     "KERNELS", "build", "library", "launch", "launch_counts",
-    "reset_launch_counts", "stream_of",
+    "add_launch_counts", "reset_launch_counts", "stream_of",
 ]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -215,6 +215,13 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
 
 def launch_counts() -> dict[str, int]:
     return dict(_launches)
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add ``counts`` (kernel -> launches, may be negative) to the counts:
+    a captured CUDA graph's replay launches what its capture counted."""
+    for k, n in counts.items():
+        _launches[k] += n
 
 
 def reset_launch_counts() -> None:

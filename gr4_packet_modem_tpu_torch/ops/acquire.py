@@ -31,6 +31,7 @@ from torch import nn
 
 from ..utils import constants as C
 from ..utils.firdes import rx_rrc_taps
+from ..utils.graphs import stage
 from ..utils.trace import span
 
 from .acquire_cuda import (
@@ -227,7 +228,12 @@ _BLOCK_FRAMES = 16
 
 
 class SyncwordAcquirer(nn.Module):
-    """Batched syncword acquisition; the constant tables are buffers."""
+    """Batched syncword acquisition; the constant tables are buffers.
+    :meth:`acquire` is a stage of the owning ``Receiver``'s bank step:
+    inside one it replays two graphs from the ``step_graphs`` the receiver
+    sets, the peak search's and the estimates' (:meth:`_peaks`)."""
+
+    step_graphs = None
 
     def __init__(self, config: AcquisitionConfig, device: str | torch.device):
         super().__init__()
@@ -435,126 +441,158 @@ class SyncwordAcquirer(nn.Module):
         single = x.ndim == 1
         if single:
             x = x[None]
+        with span("rx.acquire", x.device):
+            peaks = self._peaks(x, fresh_lo, fresh_hi)
+            return self._estimates(x, peaks, index0, single)
+
+    @stage
+    def _peaks(self, x: torch.Tensor, fresh_lo, fresh_hi):
+        """Correlation and peak detection over a bank ``[C, T]``: the
+        candidates, and what the estimates read of the ``[C, T']``
+        correlation at them, each ``[C, D]``. A bank step replays this part
+        (K1 and the peak search, some 75 launches) as a graph of its own,
+        so that the card starts on it while the host launches the
+        estimates' graph (some 250), and only ``[C, D]`` values pass from
+        one to the other. Returns ``(top_pow, ti, overflow, bi, (pa, pc),
+        at_peak)``: :func:`chunked_peak_detect`'s candidates and overflow
+        flags, their best bin, the best-bin powers of their neighbour
+        samples, and for the backends other than the fused ones the
+        adjacent bins' powers and the phase at the peak (None for the fused
+        ones, which recompute those at the candidates)."""
+        cfg = self.config
+        nb = self.num_bins
+        c = x.shape[0]
+        with span("rx.acquire.correlate"):
+            if self.fused:
+                best_pow, best_bin = self._best_power_fused(x)  # [C, T']
+            else:
+                # T' = frames * stride for fft, T - L + 1 for the conv backends
+                corr = self._correlate(x)  # [C, nb, T']
+                power = corr.abs() ** 2
+                best_pow = power.amax(dim=1)
+                best_bin = power.argmax(dim=1)
+        with span("rx.acquire.peaks"):
+            tlen = best_pow.shape[-1]
+            top_pow, ti, overflow = chunked_peak_detect(
+                best_pow, cfg.time_threshold, cfg.max_detections, cfg.power_threshold,
+                fresh_lo, fresh_hi,
+            )
+            bi = best_bin.gather(1, ti).long()
+            # time interpolation from the neighbour samples' best-bin powers,
+            # indices clamped on both backends (the JAX fused path reads 0.0
+            # past the padding instead; only slots pos_ok excludes get there)
+            neighbours = self._neighbour_powers(best_pow, ti)
+            at_peak = None
+            if not self.fused:
+                flat_power = power.reshape(c, nb * tlen)
+                at_peak = (
+                    flat_power.gather(1, (bi - 1).clamp(min=0) * tlen + ti),
+                    flat_power.gather(1, (bi + 1).clamp(max=nb - 1) * tlen + ti),
+                    torch.angle(corr.reshape(c, nb * tlen).gather(1, bi * tlen + ti)),
+                )
+        return top_pow, ti, overflow, bi, neighbours, at_peak
+
+    @stage
+    def _estimates(self, x: torch.Tensor, peaks, index0, single: bool) -> Detections:
+        """The estimates at :meth:`_peaks`' candidates, sorted by index:
+        the :class:`Detections` of :meth:`acquire`."""
+        top_pow, ti, overflow, bi, (pa, pc), at_peak = peaks
         cfg = self.config
         w = cfg.time_threshold
         nb = self.num_bins
         c, t = x.shape
-        fused = self.fused
-        with span("rx.acquire", x.device):
-            with span("rx.acquire.correlate"):
-                if fused:
-                    best_pow, best_bin = self._best_power_fused(x)  # [C, T']
-                else:
-                    # T' = frames * stride for fft, T - L + 1 for the conv backends
-                    corr = self._correlate(x)  # [C, nb, T']
-                    power = corr.abs() ** 2
-                    best_pow = power.amax(dim=1)
-                    best_bin = power.argmax(dim=1)
-            with span("rx.acquire.peaks"):
-                tlen = best_pow.shape[-1]
-                top_pow, ti, overflow = chunked_peak_detect(
-                    best_pow, w, cfg.max_detections, cfg.power_threshold, fresh_lo, fresh_hi
+        with span("rx.acquire.estimate"):
+            cand_valid = top_pow > 0
+            b = top_pow
+            # noise power windows [C, D, 2w + k] around the candidates, from one
+            # region fetch (K2); the fused backend takes the syncword windows
+            # from them too
+            k = len(self._noise_taps)
+            region = 2 * w + k
+            tc2 = torch.clamp(ti - w - (k - 1) // 2, 0, t - region)
+            starts = (tc2 + torch.arange(c, device=x.device)[:, None] * t).reshape(-1)
+            wnr, wni = fetch_regions(x.reshape(-1), starts, region)
+            wnr = wnr.view(c, -1, region)
+            wni = wni.view(c, -1, region)
+            # ---------------- parameter estimation at the candidates
+            bin_spacing = float(np.float32(np.pi / self.sync_len))
+            if at_peak is None:
+                # the kernel keeps only the best bin's power: the complex value
+                # at the peak and the adjacent bins' powers are recomputed at the
+                # candidates. A valid candidate's syncword window starts at
+                # offset ti - tc2 in [w, w + (k-1)/2] of its noise region
+                # (__init__ checks that it fits); invalid slots are clamped
+                ll = self.sync_len
+                off = (ti - tc2).clamp(0, region - ll)
+                j = off[..., None] + torch.arange(ll, device=x.device)
+                cr, ci, p3 = self._corr_points(wnr.gather(2, j), wni.gather(2, j), bi)
+                p_left, p_right = p3[..., 0], p3[..., 2]
+                phase_raw = torch.atan2(ci, cr)
+            else:
+                p_left, p_right, phase_raw = at_peak
+            interior = (bi > 0) & (bi < nb - 1)
+            denom_f = 2.0 * (2.0 * b - (p_left + p_right))
+            quad = torch.clamp(
+                (p_right - p_left) / torch.where(denom_f == 0, 1.0, denom_f), -0.5, 0.5
+            )
+            delta_freq = torch.where(interior, quad * bin_spacing, 0.0)
+            freq = (bi - cfg.freq_bins).to(torch.float32) * bin_spacing + delta_freq
+            phase = phase_raw - delta_freq * 0.5 * float(self.sync_len)
+            phase = torch.where(phase >= PI, phase - TWO_PI, phase)
+            phase = torch.where(phase < -PI, phase + TWO_PI, phase)
+            # power peak interpolation b + (c-a)^2 / (16 (b - (a+c)/2))
+            # (syncword_detection.hpp:82-84); 16 (b - (a+c)/2) == 4 * denom_f
+            p_interp = torch.where(
+                interior,
+                b + (p_right - p_left) ** 2
+                / torch.where(denom_f == 0, 1.0, 4.0 * denom_f),
+                b,
+            )
+            self_corr = self.self_corr.to(torch.float32)
+            amplitude = torch.sqrt(torch.clamp(p_interp, min=0.0)) / self_corr
+            denom_t = 2.0 * (2.0 * b - (pa + pc))
+            time_est = torch.clamp(
+                (pc - pa) / torch.where(denom_t == 0, 1.0, denom_t), -0.5, 0.5
+            )
+            # noise power: mean power of the out-of-band (high-pass) component
+            # in the CFAR window around each candidate, scaled to full-band
+            # complex noise power
+            h_rev = self._noise_taps
+            win = 2 * w + 1
+            hp_r = h_rev[0] * wnr[..., 0:win]
+            hp_i = h_rev[0] * wni[..., 0:win]
+            for j in range(1, k):
+                hp_r = hp_r + h_rev[j] * wnr[..., j : j + win]
+                hp_i = hp_i + h_rev[j] * wni[..., j : j + win]
+            pw = hp_r**2 + hp_i**2  # [C, D, 2w+1]
+            noise_power = pw.mean(dim=-1) / self.noise_gain.to(torch.float32)
+            noise_power = torch.clamp(noise_power, min=1e-12)
+            sync_power = amplitude**2 * self_corr
+            esn0 = 10.0 * torch.log10(
+                torch.clamp(
+                    sync_power
+                    * float(cfg.samples_per_symbol)
+                    / (noise_power * float(self.sync_len)),
+                    min=1e-12,
                 )
-            with span("rx.acquire.estimate"):
-                cand_valid = top_pow > 0
-                b = top_pow
-                bi = best_bin.gather(1, ti).long()
-                # noise power windows [C, D, 2w + k] around the candidates, from one
-                # region fetch (K2); the fused backend takes the syncword windows
-                # from them too
-                k = len(self._noise_taps)
-                region = 2 * w + k
-                tc2 = torch.clamp(ti - w - (k - 1) // 2, 0, t - region)
-                starts = (tc2 + torch.arange(c, device=x.device)[:, None] * t).reshape(-1)
-                wnr, wni = fetch_regions(x.reshape(-1), starts, region)
-                wnr = wnr.view(c, -1, region)
-                wni = wni.view(c, -1, region)
-                # ---------------- parameter estimation at the candidates
-                bin_spacing = float(np.float32(np.pi / self.sync_len))
-                if fused:
-                    # the kernel keeps only the best bin's power: the complex value
-                    # at the peak and the adjacent bins' powers are recomputed at the
-                    # candidates. A valid candidate's syncword window starts at
-                    # offset ti - tc2 in [w, w + (k-1)/2] of its noise region
-                    # (__init__ checks that it fits); invalid slots are clamped
-                    ll = self.sync_len
-                    off = (ti - tc2).clamp(0, region - ll)
-                    j = off[..., None] + torch.arange(ll, device=x.device)
-                    cr, ci, p3 = self._corr_points(wnr.gather(2, j), wni.gather(2, j), bi)
-                    p_left, p_right = p3[..., 0], p3[..., 2]
-                    phase_raw = torch.atan2(ci, cr)
-                else:
-                    flat_power = power.reshape(c, nb * tlen)
-                    p_left = flat_power.gather(1, (bi - 1).clamp(min=0) * tlen + ti)
-                    p_right = flat_power.gather(1, (bi + 1).clamp(max=nb - 1) * tlen + ti)
-                    phase_raw = torch.angle(corr.reshape(c, nb * tlen).gather(1, bi * tlen + ti))
-                interior = (bi > 0) & (bi < nb - 1)
-                denom_f = 2.0 * (2.0 * b - (p_left + p_right))
-                quad = torch.clamp(
-                    (p_right - p_left) / torch.where(denom_f == 0, 1.0, denom_f), -0.5, 0.5
-                )
-                delta_freq = torch.where(interior, quad * bin_spacing, 0.0)
-                freq = (bi - cfg.freq_bins).to(torch.float32) * bin_spacing + delta_freq
-                phase = phase_raw - delta_freq * 0.5 * float(self.sync_len)
-                phase = torch.where(phase >= PI, phase - TWO_PI, phase)
-                phase = torch.where(phase < -PI, phase + TWO_PI, phase)
-                # power peak interpolation b + (c-a)^2 / (16 (b - (a+c)/2))
-                # (syncword_detection.hpp:82-84); 16 (b - (a+c)/2) == 4 * denom_f
-                p_interp = torch.where(
-                    interior,
-                    b + (p_right - p_left) ** 2
-                    / torch.where(denom_f == 0, 1.0, 4.0 * denom_f),
-                    b,
-                )
-                self_corr = self.self_corr.to(torch.float32)
-                amplitude = torch.sqrt(torch.clamp(p_interp, min=0.0)) / self_corr
-                # time interpolation from the neighbour samples' best-bin powers,
-                # indices clamped on both backends (the JAX fused path reads 0.0
-                # past the padding instead; only slots pos_ok excludes get there)
-                pa, pc = self._neighbour_powers(best_pow, ti)
-                denom_t = 2.0 * (2.0 * b - (pa + pc))
-                time_est = torch.clamp(
-                    (pc - pa) / torch.where(denom_t == 0, 1.0, denom_t), -0.5, 0.5
-                )
-                # noise power: mean power of the out-of-band (high-pass) component
-                # in the CFAR window around each candidate, scaled to full-band
-                # complex noise power
-                h_rev = self._noise_taps
-                win = 2 * w + 1
-                hp_r = h_rev[0] * wnr[..., 0:win]
-                hp_i = h_rev[0] * wni[..., 0:win]
-                for j in range(1, k):
-                    hp_r = hp_r + h_rev[j] * wnr[..., j : j + win]
-                    hp_i = hp_i + h_rev[j] * wni[..., j : j + win]
-                pw = hp_r**2 + hp_i**2  # [C, D, 2w+1]
-                noise_power = pw.mean(dim=-1) / self.noise_gain.to(torch.float32)
-                noise_power = torch.clamp(noise_power, min=1e-12)
-                sync_power = amplitude**2 * self_corr
-                esn0 = 10.0 * torch.log10(
-                    torch.clamp(
-                        sync_power
-                        * float(cfg.samples_per_symbol)
-                        / (noise_power * float(self.sync_len)),
-                        min=1e-12,
-                    )
-                )
-                # sort by index, invalid last
-                key = torch.where(cand_valid, ti, torch.iinfo(torch.int32).max)
-                order = torch.argsort(key, dim=1, stable=True)
+            )
+            # sort by index, invalid last
+            key = torch.where(cand_valid, ti, torch.iinfo(torch.int32).max)
+            order = torch.argsort(key, dim=1, stable=True)
 
-                def sel(a):
-                    a = a.gather(1, order)
-                    return a[0] if single else a
+            def sel(a):
+                a = a.gather(1, order)
+                return a[0] if single else a
 
-                return Detections(
-                    index=sel(ti + index0),
-                    valid=sel(cand_valid),
-                    amplitude=sel(amplitude),
-                    phase=sel(phase),
-                    freq=sel(freq),
-                    freq_bin=sel(bi - cfg.freq_bins),
-                    time_est=sel(time_est),
-                    noise_power=sel(noise_power),
-                    esn0_db=sel(esn0),
-                    overflow=overflow[0] if single else overflow,
-                )
+            return Detections(
+                index=sel(ti + index0),
+                valid=sel(cand_valid),
+                amplitude=sel(amplitude),
+                phase=sel(phase),
+                freq=sel(freq),
+                freq_bin=sel(bi - cfg.freq_bins),
+                time_est=sel(time_est),
+                noise_power=sel(noise_power),
+                esn0_db=sel(esn0),
+                overflow=overflow[0] if single else overflow,
+            )

@@ -288,7 +288,7 @@ def stream_plan(fpad: int, resident: int, nb: int, n: int) -> list[dict]:
     return out
 
 
-@lru_cache(maxsize=8)
+@lru_cache(maxsize=None)  # kept: captured CUDA graphs read these tensors by address
 def _bf16_device_tables(n: int, device: torch.device) -> tuple[torch.Tensor, ...]:
     """:func:`bf16_tables` on ``device``, and :func:`_replica_index`."""
     t = bf16_tables(n)
@@ -467,7 +467,7 @@ def kernel_plan(n: int) -> dict:
     }
 
 
-@lru_cache(maxsize=8)
+@lru_cache(maxsize=None)  # kept: captured CUDA graphs read these tensors by address
 def _tables(n: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """``kernel_plan(n)``'s twiddle bases (complex64) and register-order
     frequency map (int64 ``[16 * N/16]``, register-major) on ``device``."""

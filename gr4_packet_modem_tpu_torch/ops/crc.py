@@ -196,7 +196,7 @@ def crc_bytes_be(crc: torch.Tensor) -> torch.Tensor:
     return ((crc.to(torch.int64)[:, None] >> shifts) & 0xFF).to(torch.uint8)
 
 
-@lru_cache(maxsize=16)
+@lru_cache(maxsize=None)  # kept: captured CUDA graphs read these tensors by address
 def _device_tables(max_len: int, device: torch.device) -> tuple[torch.Tensor, ...]:
     """:func:`crc32_tables` for ``max_len`` as int64 tensors on ``device``."""
     t = crc32_tables(max_len)

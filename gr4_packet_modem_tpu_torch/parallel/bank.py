@@ -91,6 +91,7 @@ def sharded_group_decode(
     dd = rx.config.max_detections
     det = rx.acquirer.acquire(g_ext, fresh_lo=fresh_lo, fresh_hi=fresh_lo + fresh_len)
     detf, chan = flatten_detections(det)
+    detf.overflow = det.overflow.any()
     hdr, _ = rx.decode_headers(g_ext, detf, chan)
     g = g_ext.shape[0]
     with span("rx.suppress", g_ext.device):  # the time shards' exchange included

@@ -333,7 +333,7 @@ class StreamingBank:
         res = rx.decode_payloads(buf, detf, hdr, keep.reshape(-1), chan)
         out = (
             detf.index, res.lengths, hdr.packet_type, detf.esn0_db, detf.freq,
-            hdr.arm, res.accepted, res.data, detf.overflow, busy_end,
+            hdr.arm, res.accepted, res.data, det.overflow.any(), busy_end,
         )
         return out + ((hdr_syms, res.symbols) if self._with_syms else ())
 

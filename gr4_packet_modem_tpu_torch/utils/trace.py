@@ -38,6 +38,11 @@ close), and :func:`totals` waits for the rest.
 ``next_step()`` advances the step id that every span of one bank step (or
 one streamed block) carries; :meth:`Receiver.bank_step` and
 ``StreamingBank`` call it.
+
+Counters (:func:`count`) are kept whether tracing is on or off: an integer
+add a call. ``utils/graphs.py`` counts how each bank step ran
+(``rx.graph.captured``, ``.replayed``, ``.eager``, ``.evicted``);
+:func:`totals` returns them under ``"counters"``.
 """
 
 from __future__ import annotations
@@ -49,7 +54,9 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["Record", "span", "enable", "reset", "next_step", "totals", "records"]
+__all__ = [
+    "Record", "span", "enable", "enabled", "reset", "next_step", "count", "totals", "records",
+]
 
 RING = 1 << 16  # records kept (a 64-channel bank step makes about 20)
 
@@ -85,6 +92,7 @@ _ring: deque[Record] = deque(maxlen=RING)
 # name -> [calls, host ns, self host ns, device ms, calls with device ms]
 _totals: dict[str, list] = {}
 _pending: deque = deque()  # (record, start event, end event) not read yet
+_counters: dict[str, int] = {}
 _lock = threading.Lock()
 _local = threading.local()  # each thread's stack of open spans
 
@@ -167,13 +175,26 @@ def enable(on: bool = True) -> None:
     _on = bool(on)
 
 
+def enabled() -> bool:
+    """Whether tracing is on."""
+    return _on
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` (tracing on or off)."""
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + n
+
+
 def reset() -> None:
-    """Forget every record and total, and start the step ids again at 0."""
+    """Forget every record, total and counter, and start the step ids
+    again at 0."""
     global _step
     with _lock:
         _ring.clear()
         _totals.clear()
         _pending.clear()
+        _counters.clear()
         _step = 0
 
 
@@ -188,9 +209,9 @@ def next_step() -> int:
 def totals() -> dict:
     """The running totals since the last :func:`reset`, after waiting for
     every span's end event: ``{"steps": step id, "spans": {name:
-    {"calls", "host_s", "self_host_s", "device_ms", "device_calls"}}}``.
-    ``device_ms`` sums the event times of ``device_calls`` calls (None for
-    a host span)."""
+    {"calls", "host_s", "self_host_s", "device_ms", "device_calls"}},
+    "counters": {name: count}}``. ``device_ms`` sums the event times of
+    ``device_calls`` calls (None for a host span)."""
     with _lock:
         _resolve(wait=True)
         spans = {
@@ -198,7 +219,7 @@ def totals() -> dict:
                    "device_ms": d if dc else None, "device_calls": dc}
             for name, (c, h, s, d, dc) in _totals.items()
         }
-        return {"steps": _step, "spans": spans}
+        return {"steps": _step, "spans": spans, "counters": dict(_counters)}
 
 
 def records() -> list[Record]:

@@ -19,6 +19,16 @@ traffic and entry module, from ``h100_bench/``), then:
    by the innermost span open on the host, and the share of the window in
    which the device idles while the host is inside ``rx.step``.
 
+With tracing off the bank step replays its stages from CUDA graphs
+(``utils/graphs.py``); with it on, every step runs eagerly. So the turns
+compare the graphed step with the traced eager one, and the session with
+tracing off is the graphed timeline: there the step and its four stages
+carry profiler annotations of their own (``span:rx.step``,
+``span:rx.acquire``, ``span:rx.headers``, ``span:rx.suppress``,
+``span:rx.payload``, host only, as the benchmark's ``--trace 1`` wrappers
+are), which the graphs leave in place. The receiver's graph counters
+(``Receiver.graph_counts()``) are printed after each phase.
+
 A host-fed cell (``--workload vv8_stream``, staged in ``h100_bench``)
 instead feeds blocks with tracing off and on, and reports ``StreamingBank``'s
 ``stats`` split a block (staging, the wait for a staging slot, the rest
@@ -39,6 +49,7 @@ import subprocess
 import sys
 import time
 from collections import defaultdict
+from contextlib import contextmanager
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # host-fed cells the benchmark stages but does not list: (config, traffic)
@@ -94,7 +105,8 @@ def session_spans(torch, prof, steps: int) -> dict | None:
     """The program's spans in one profiler session of ``steps`` steps, each
     step in a host span ``span:step`` (times in the profiler's us). The
     window runs from the second step's start to the last device operation
-    or step end, as ``h100_bench.trace.reduce`` takes it."""
+    or step end, as ``h100_bench.trace.reduce`` takes it. ``host_ms``: each
+    host span's ms a step, over the whole session."""
     cuda = torch.autograd.DeviceType.CUDA
     evs = list(prof.events())
     dev = [e for e in evs if e.device_type == cuda]
@@ -111,6 +123,9 @@ def session_spans(torch, prof, steps: int) -> dict | None:
     edges = [w0] + [x for iv in busy for x in iv] + [w1]
     gaps = [(s, e) for s, e in zip(edges[0::2], edges[1::2]) if e > s]
     names = innermost_names(host, gaps)
+    host_ms = defaultdict(float)
+    for s, e, n in host:
+        host_ms[n] += (e - s) / 1e3 / steps
     idle_by = defaultdict(float)
     for (s, e), n in zip(gaps, names):
         idle_by[n] += e - s
@@ -135,6 +150,7 @@ def session_spans(torch, prof, steps: int) -> dict | None:
         "idle_pct_by_span": {n: 100.0 * t / window for n, t in sorted(idle_by.items(), key=lambda kv: -kv[1])},
         "gaps": [[n, (e - s) / 1e6] for (s, e), n in sorted(zip(gaps, names), key=lambda g: g[0][0] - g[0][1])[:10]],
         "gpu_spans": per,
+        "host_ms": dict(host_ms),
     }
 
 
@@ -186,10 +202,47 @@ def _ancestors(n, parents):
         yield n
 
 
+# the receiver's step and stages, annotated in the graphed session:
+# (attribute of the receiver holding the method, or None, method, span name)
+ANNOTATED = ((None, "bank_step", "rx.step"), ("acquirer", "acquire", "rx.acquire"),
+             (None, "decode_headers", "rx.headers"), (None, "filter_detections", "rx.suppress"),
+             (None, "decode_payloads", "rx.payload"))
+
+
+@contextmanager
+def annotated(torch, rx):
+    """Profiler annotations ``span:<name>`` around the receiver's step and
+    stages (:data:`ANNOTATED`), set on the instances as the benchmark's
+    wrappers are: host only, no events and no program spans, so the step
+    still replays its graphs. Restores what the instances held before."""
+    missing = object()
+    saved = []
+    for owner, method, name in ANNOTATED:
+        obj = getattr(rx, owner) if owner else rx
+        fn = getattr(obj, method)
+
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            with torch.profiler.record_function("span:" + _name):
+                return _fn(*a, **kw)
+
+        saved.append((obj, method, obj.__dict__.get(method, missing)))
+        setattr(obj, method, wrapped)
+    try:
+        yield
+    finally:
+        for obj, method, old in reversed(saved):
+            if old is missing:
+                delattr(obj, method)
+            else:
+                setattr(obj, method, old)
+
+
 def resident(torch, st, args, trace, echo) -> dict:
     from h100_bench.trace import reduce
 
     banks, step, rx = st["banks"], st["step"], st["rx"]
+    counts = {"setup": rx.graph_counts()}
+    echo(f"graph counts after set-up: {counts['setup']}")
     per_step = len(banks[0]) * st["block"]
     k = [0]
     calls = []  # host seconds of each bank_step call: its dispatch
@@ -219,12 +272,16 @@ def resident(torch, st, args, trace, echo) -> dict:
         return {"tracing": on, "rx_sps": n * per_step / dt, "bank_step_host_ms": 1e3 * sum(calls) / len(calls)}
 
     turns = [turn(on) for on in (False, True, True, False, False, True)]
+    counts["turns"] = rx.graph_counts()
+    echo(f"graph counts after the turns: {counts['turns']}")
     trace.enable(True)
     trace.reset()
     turn(True)
     trace.enable(False)
     tot = trace.totals()
     parents = {r.name: r.parent for r in trace.records()}
+    counts["traced_window"] = tot["counters"]
+    echo(f"graph counters of the traced window (trace.totals): {tot['counters']}")
 
     def session(on: bool):
         best = None
@@ -247,8 +304,13 @@ def resident(torch, st, args, trace, echo) -> dict:
             best = best or (r, s)
         return best
 
-    r_off, _ = session(False)
+    before = rx.graph_counts()
+    with annotated(torch, rx):
+        r_off, s_off = session(False)
+    counts["graphed_session"] = {k: v - before[k] for k, v in rx.graph_counts().items()}
     r_on, s_on = session(True)
+    counts["end"] = rx.graph_counts()
+    echo(f"graph counts of the graphed session: {counts['graphed_session']}; at the end: {counts['end']}")
     table = span_table(tot, parents, s_on)
 
     def mean(key, on):
@@ -268,6 +330,12 @@ def resident(torch, st, args, trace, echo) -> dict:
         "suppress_ms": table.get("rx.suppress", {}).get("event_ms"),
         "step_host_ms": table.get("rx.step", {}).get("host_ms"),
         "session": s_on, "spans": table, "steps_traced": tot["steps"],
+        "graph_counts": counts,
+        "graphed": r_off and {
+            "whole": r_off["whole"], "ops_per_step": r_off["ops_per_step"],
+            "idle_pct_harness_rule": 100.0 * (1 - r_off["busy_s"] / r_off["window_s"]),
+            "gaps_harness_rule": r_off["idle_gaps"], "session": s_off,
+        },
     }
     echo(f"rx_sps off {out['rx_sps_off_mean']:.5g}, on {out['rx_sps_on_mean']:.5g} "
          f"(on/off {out['on_over_off']:.4f}); bank_step host ms off {out['bank_step_host_ms_off']:.3f}, "
@@ -279,6 +347,14 @@ def resident(torch, st, args, trace, echo) -> dict:
         echo(f"idle {s_on['idle_pct']:.2f} %, of it while the host is in rx.step "
              f"{s_on['dispatch_idle_pct']:.2f} %; by innermost span: "
              + ", ".join(f"{n} {v:.2f}" for n, v in s_on["idle_pct_by_span"].items()))
+    if s_off:
+        echo(f"graphed (tracing off, a step from its graphs): idle {s_off['idle_pct']:.2f} %, of it while "
+             f"the host is in rx.step {s_off['dispatch_idle_pct']:.2f} %; by innermost span: "
+             + ", ".join(f"{n} {v:.2f}" for n, v in s_off["idle_pct_by_span"].items()))
+        echo(f"{'graphed span':24s} {'host ms':>8s} {'kernel ms':>9s} {'ops':>7s}")
+        for n, t in s_off["gpu_spans"].items():
+            host = "-" if n not in s_off["host_ms"] else f"{s_off['host_ms'][n]:.3f}"
+            echo(f"{n:24s} {host:>8s} {t['kernel_ms']:9.3f} {t['ops']:7.1f}")
     echo(f"{'span':24s} {'calls':>6s} {'host ms':>8s} {'self ms':>8s} {'event ms':>9s} "
          f"{'kernel ms':>9s} {'ops':>7s} {'own kern':>9s} {'own ops':>7s}")
     for n, t in table.items():

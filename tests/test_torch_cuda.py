@@ -380,7 +380,10 @@ def test_bank_step_tracing_adds_no_device_operation(dev):
     """The port's spans (``utils/trace.py``) under torch.profiler: a
     ``bank_step`` of a four-channel bank launches the same device
     operations and synchronises as often with program tracing on as off,
-    gives the same outputs. Every ``rx.*`` stage span has a device time
+    gives the same outputs (each session on a copy of the bank that the
+    receiver has not seen, so that both steps run eagerly: a bank seen
+    before replays CUDA graphs, held to the eager step in
+    ``test_bank_step_graphs_bit_identical``). Every ``rx.*`` stage span has a device time
     from its events, and every span that launches device work itself (the
     sub-spans, ``rx.suppress``, and ``rx.step`` for the flattening between
     stages) has a GPU-side annotation: the profiler puts each kernel in the
@@ -410,12 +413,14 @@ def test_bank_step_tracing_adds_no_device_operation(dev):
         "step", "suppress", "acquire.correlate", "acquire.peaks", "acquire.estimate", "headers.extract",
         "headers.costas", "headers.ldpc", "payload.extract", "payload.carrier", "payload.crc")}
 
+    banks = {False: x.clone(), True: x.clone()}
+
     def session(on):
         trace.enable(on)
         trace.reset()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            out = rx.bank_step(x, 0)
+            out = rx.bank_step(banks[on], 0)
             torch.cuda.synchronize()
         trace.enable(False)
         evs = list(prof.events())
@@ -440,6 +445,153 @@ def test_bank_step_tracing_adds_no_device_operation(dev):
     for a, b in zip(out_off[:3], out_on[:3]):
         for f in vars(a):
             assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def _graph_bank(rx, channels, seed):
+    """``channels`` channels of three bursts each, channel c rotated by
+    0.3 (c + seed) rad and starting 50 c + 97 seed samples in."""
+    from gr4_packet_modem_tpu_torch.utils.stimulus import burst_samples
+
+    rng = np.random.default_rng(4)
+    burst = np.concatenate([burst_samples(rng.integers(0, 256, n, dtype=np.uint8), packet_index=i)
+                            for i, n in enumerate((60, 128, 9))])
+    fp = rx.front_pad
+    x = torch.zeros(channels, fp + 16384 + rx.pad_tail(), dtype=torch.complex64)
+    for c in range(channels):
+        at = fp + 50 * (c % 8) + 97 * seed
+        x[c, at : at + burst.size] = torch.from_numpy((np.exp(0.3j * (c + seed)) * burst).astype(np.complex64))
+    return x.to(rx.arm_taps.device)
+
+
+def _same_step(a, b):
+    from dataclasses import fields
+
+    for u, v in zip(a[:3], b[:3]):
+        for f in fields(u):
+            p, q = getattr(u, f.name), getattr(v, f.name)
+            assert p.dtype == q.dtype and p.shape == q.shape and torch.equal(p, q), f.name
+    assert torch.equal(a[3], b[3])
+
+
+def _cloned(out):
+    from dataclasses import fields, replace
+
+    return (*(replace(o, **{f.name: getattr(o, f.name).clone() for f in fields(o)}) for o in out[:3]),
+            out[3].clone())
+
+
+@pytest.mark.parametrize("carrier", ["vv", "costas"])
+def test_bank_step_graphs_bit_identical(dev, carrier):
+    """``bank_step`` replaying its stages from CUDA graphs: four banks
+    cycled three times (eager, captured, replayed), every step bit-
+    identical to the eager stages on its bank, with the launch counts of
+    the eager step; captures only at each bank's second sight; the results
+    of a replayed step unchanged after the eight steps after it; with
+    program tracing on, every step eager."""
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver, RxConfig
+    from gr4_packet_modem_tpu_torch.utils import trace
+
+    rx = Receiver(RxConfig(max_payload_len=128, max_detections=8, freq_bins=1, payload_carrier=carrier), dev)
+    banks = [_graph_bank(rx, 4, s) for s in range(4)]
+    want = []
+    for x in banks:  # the stages outside a step: eager
+        _build.reset_launch_counts()
+        want.append(rx.decode_bank(x, rx.acquirer.acquire(x)))
+        eager_launches = _build.launch_counts()
+    assert rx.graph_counts() == {"captured": 0, "replayed": 0, "eager": 0, "evicted": 0}
+    got = []
+    for i in range(12):
+        _build.reset_launch_counts()
+        got.append(rx.bank_step(banks[i % 4], 0))
+        assert _build.launch_counts() == eager_launches, i
+        kind = ("eager", "captured", "replayed")[i // 4]
+        assert rx.graph_counts()[kind] == i % 4 + 1, (i, rx.graph_counts())
+    torch.cuda.synchronize()
+    for i, out in enumerate(got):
+        _same_step(out, want[i % 4])
+    assert int(got[-1][2].accepted.sum()) == 4 * 3
+    kept = _cloned(got[8])
+    for i in range(8):
+        rx.bank_step(banks[(i + 1) % 4], 0)
+    torch.cuda.synchronize()
+    _same_step(got[8], kept)
+    assert rx.graph_counts() == {"captured": 4, "replayed": 12, "eager": 4, "evicted": 0}
+    trace.enable(True)
+    try:
+        for x, w in zip(banks[:2], want):
+            _same_step(rx.bank_step(x, 0), w)
+    finally:
+        trace.enable(False)
+        trace.reset()
+    assert rx.graph_counts() == {"captured": 4, "replayed": 12, "eager": 6, "evicted": 0}
+
+
+def test_bank_step_graphs_grouped(dev):
+    """``bank_step(x, 16)`` on 32 channels: a chain of five graphs a group,
+    the captured and the replayed step bit-identical to the eager one."""
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver, RxConfig
+
+    rx = Receiver(RxConfig(max_payload_len=128, max_detections=8, freq_bins=1, payload_carrier="vv"), dev)
+    x = _graph_bank(rx, 32, 1)
+    steps = [rx.bank_step(x, 16) for _ in range(3)]
+    torch.cuda.synchronize()
+    for out in steps[1:]:
+        _same_step(out, steps[0])
+    assert int(steps[0][2].accepted.sum()) == 32 * 3
+    assert rx.graph_counts() == {"captured": 1, "replayed": 1, "eager": 1, "evicted": 0}
+    # a group's graphs: the peak search, the estimates, headers, suppression, payload
+    assert sum(len(s.stages) for s in rx.step_graphs.chains.values()) == 2 * 5
+
+
+@pytest.mark.parametrize("carrier,group", [("vv", 0), ("costas", 0), ("vv", 16)])
+def test_bank_step_graphs_follow_new_contents(dev, carrier, group):
+    """One bank overwritten in place with other samples before every step:
+    the captured step and each replay recompute from the bank's current
+    contents, bit-identical to the eager step on those samples (the same
+    samples at another address, seen once, so run eagerly)."""
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver, RxConfig
+
+    rx = Receiver(RxConfig(max_payload_len=128, max_detections=8, freq_bins=1, payload_carrier=carrier), dev)
+    channels = 32 if group else 4
+    contents = [_graph_bank(rx, channels, s) for s in range(3)]
+    want = [rx.bank_step(c, group) for c in contents]
+    for w in want:
+        assert int(w[2].accepted.sum()) == channels * 3
+    x = torch.empty_like(contents[0])
+    got = []
+    for i in range(7):
+        x.copy_(contents[i % 3])
+        got.append(rx.bank_step(x, group))
+    torch.cuda.synchronize()
+    for i, out in enumerate(got):
+        _same_step(out, want[i % 3])
+    assert rx.graph_counts() == {"captured": 1, "replayed": 5, "eager": 4, "evicted": 0}
+
+
+def test_bank_step_graphs_on_another_device():
+    """A receiver on a card that is not the current device: its steps
+    capture and replay on that card's stream, bit-identical to the eager
+    step, and the current device is left as it was."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver, RxConfig
+
+    torch.cuda.set_device(0)
+    other = torch.device("cuda", 1)
+    rx = Receiver(RxConfig(max_payload_len=128, max_detections=8, freq_bins=1, payload_carrier="vv"), other)
+    contents = [_graph_bank(rx, 4, s) for s in range(2)]
+    assert contents[0].device == other
+    want = [rx.bank_step(c, 0) for c in contents]
+    x = torch.empty_like(contents[0])
+    got = []
+    for i in range(6):
+        x.copy_(contents[i % 2])
+        got.append(rx.bank_step(x, 0))
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(other)
+    for i, out in enumerate(got):
+        _same_step(out, want[i % 2])
+    assert rx.graph_counts() == {"captured": 1, "replayed": 4, "eager": 3, "evicted": 0}
 
 
 def test_sharded_bank_world_one_nccl(dev):

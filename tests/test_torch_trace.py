@@ -74,7 +74,9 @@ def test_off_leaves_no_span_and_no_record(vv):
     rx, x = vv
     names = _profiled_names(lambda: rx.bank_step(x, 2))
     assert not [n for n in names if n.startswith("span:")]
-    assert trace.records() == [] and trace.totals() == {"steps": 0, "spans": {}}
+    # the graph counters are kept with tracing off: one eager step
+    assert trace.records() == [] and trace.totals() == {"steps": 0, "spans": {},
+                                                        "counters": {"rx.graph.eager": 1}}
     assert trace.span("rx.step") is trace.span("rx.payload", torch.device("cpu"))  # one shared no-op
 
 
@@ -109,7 +111,7 @@ def test_bank_step_span_tree(vv):
         assert spans[stage]["self_host_s"] == pytest.approx(spans[stage]["host_s"] - kids, rel=1e-9, abs=1e-12)
     assert all(t["device_ms"] is None and t["device_calls"] == 0 for t in spans.values())
     trace.reset()
-    assert trace.records() == [] and trace.totals() == {"steps": 0, "spans": {}}
+    assert trace.records() == [] and trace.totals() == {"steps": 0, "spans": {}, "counters": {}}
 
 
 @pytest.mark.parametrize("carrier", ["vv", "costas"])
