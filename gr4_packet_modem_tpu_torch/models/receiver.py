@@ -35,6 +35,7 @@ eagerly; :meth:`Receiver.graph_counts` says how the steps ran.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass, fields
 
 import numpy as np
@@ -44,7 +45,7 @@ from torch import nn
 from ..utils import constants as C
 from ..utils.firdes import rx_rrc_taps
 from ..utils.graphs import StepGraphs, owned, stage
-from ..utils.trace import next_step, span
+from ..utils.trace import count, next_step, span
 
 from ..ops.acquire import AcquisitionConfig, Detections, SyncwordAcquirer
 from ..ops.costas import PI, TWO_PI
@@ -337,6 +338,7 @@ class Receiver(nn.Module):
         sym_offset: int,
         num_syms: int,
         chan: torch.Tensor | None = None,
+        chunk_span: str | None = None,
     ) -> torch.Tensor:
         """Matched-filter ``num_syms`` symbols from symbol ``sym_offset`` of
         each detection: region fetch (K2), coarse derotation by
@@ -344,28 +346,31 @@ class Receiver(nn.Module):
         amplitude normalisation, chunked over symbols. ``x`` is ``[N]``, or
         a bank ``[C, N]`` with ``chan`` giving each detection's channel
         (regions then address the flattened bank; indices stay channel-
-        local)."""
+        local). Counts the chunks in ``rx.extract.chunks``; ``chunk_span``
+        names a span around each chunk."""
         cfg = self.config
         sps = cfg.samples_per_symbol
         kk = self.arm_len
         taps = self.arm_taps[arm].flip(1).contiguous()  # [D, K] time-reversed
         chunk, nchunks = self._extraction_chunks(num_syms)
+        count("rx.extract.chunks", nchunks)
         row_len = x.shape[-1]
         xf = x.reshape(-1)
         region_len = sps * (chunk - 1) + kk
         j = torch.arange(region_len, device=x.device)
         out = []
         for c in range(nchunks):
-            start = n_base + sps * (sym_offset + c * chunk) - (kk - 1)
-            start = torch.clamp(start, 0, row_len - region_len)
-            fetch_start = start if chan is None else start + chan * row_len
-            rr, ri = fetch_regions(xf, fetch_start, region_len)
-            ph = -freq[:, None] * (start[:, None] + j - n0[:, None]).to(torch.float32)
-            cph, sph = torch.cos(ph), torch.sin(ph)
-            dr = rr * cph - ri * sph
-            di = rr * sph + ri * cph
-            outr, outi = matched_filter(dr, di, taps, sps, chunk)
-            out.append(torch.complex(outr, outi) * amp_scale[:, None])
+            with span(chunk_span) if chunk_span else nullcontext():
+                start = n_base + sps * (sym_offset + c * chunk) - (kk - 1)
+                start = torch.clamp(start, 0, row_len - region_len)
+                fetch_start = start if chan is None else start + chan * row_len
+                rr, ri = fetch_regions(xf, fetch_start, region_len)
+                ph = -freq[:, None] * (start[:, None] + j - n0[:, None]).to(torch.float32)
+                cph, sph = torch.cos(ph), torch.sin(ph)
+                dr = rr * cph - ri * sph
+                di = rr * sph + ri * cph
+                outr, outi = matched_filter(dr, di, taps, sps, chunk)
+                out.append(torch.complex(outr, outi) * amp_scale[:, None])
         return torch.cat(out, dim=1)[:, :num_syms].contiguous()
 
     # ------------------------------------------------------------ header pass
@@ -538,11 +543,12 @@ class Receiver(nn.Module):
     ) -> PayloadResult:
         cfg = self.config
         s_pay = cfg.max_payload_syms
+        count("rx.payload.slot_symbols", det.index.numel() * s_pay)
         with span("rx.payload", x.device):
             with span("rx.payload.extract"):
                 syms = self._extract_symbols(
                     x, hdr.n_base, hdr.arm, det.freq, det.index, hdr.amp_scale,
-                    _HEADER_REGION_SYMS, s_pay, chan,
+                    _HEADER_REGION_SYMS, s_pay, chan, "rx.payload.extract.chunk",
                 )
             with span("rx.payload.carrier"):
                 if cfg.payload_carrier == "vv":

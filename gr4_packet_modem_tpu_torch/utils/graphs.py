@@ -40,9 +40,10 @@ caller of a step copies them out (:func:`owned`) before it returns them.
 Every step counts one of ``captured``, ``replayed`` or ``eager``, and each
 chain dropped counts ``evicted``; the counts are always kept, on the
 object (:attr:`StepGraphs.counts`) and in ``trace.totals()["counters"]``
-as ``rx.graph.<count>``. ``ops/_build.py``'s launch counts stay those of
-the eager step: a capture takes back the launches it counted and each
-replay adds them.
+as ``rx.graph.<count>``. ``ops/_build.py``'s launch counts and the
+counters a stage adds (``trace.count``, such as ``rx.extract.chunks``)
+stay those of the eager step: a capture takes back what it counted and
+each replay adds it.
 """
 
 from __future__ import annotations
@@ -100,6 +101,7 @@ class _Stage:
     graph: object
     out: object
     launches: dict
+    counters: dict
 
 
 @dataclasses.dataclass
@@ -206,11 +208,14 @@ class StepGraphs:
         chain = self.chain
         key = (name, arg_key(args))
         if not chain.ready:
-            launched = _build.launch_counts()
+            launched, counted = _build.launch_counts(), trace.counters()
             graph, out = self._capture(fn)
             launches = {k: n - launched[k] for k, n in _build.launch_counts().items() if n != launched[k]}
             _build.add_launch_counts({k: -n for k, n in launches.items()})
-            chain.stages.append(_Stage(key, graph, out, launches))
+            counters = {k: n - counted.get(k, 0) for k, n in trace.counters().items() if n != counted.get(k, 0)}
+            for k, n in counters.items():
+                trace.count(k, -n)
+            chain.stages.append(_Stage(key, graph, out, launches, counters))
         i = chain.pos
         chain.pos += 1
         st = chain.stages[i] if i < len(chain.stages) else None
@@ -221,6 +226,8 @@ class StepGraphs:
             return fn()
         self._replay(st.graph)
         _build.add_launch_counts(st.launches)
+        for k, n in st.counters.items():
+            trace.count(k, n)
         return st.out
 
     # ------------------------------------------------------ capture, replay

@@ -41,8 +41,13 @@ one streamed block) carries; :meth:`Receiver.bank_step` and
 
 Counters (:func:`count`) are kept whether tracing is on or off: an integer
 add a call. ``utils/graphs.py`` counts how each bank step ran
-(``rx.graph.captured``, ``.replayed``, ``.eager``, ``.evicted``);
-:func:`totals` returns them under ``"counters"``.
+(``rx.graph.captured``, ``.replayed``, ``.eager``, ``.evicted``); the
+receiver counts the work its shapes set: ``rx.extract.chunks`` (the
+symbol extractions' chunks, each one K2 and one K3 launch) and
+``rx.payload.slot_symbols`` (rows times symbols the payload pass
+decoded). A step replayed from CUDA graphs adds what the eager step adds.
+:func:`counters` reads them, and :func:`totals` returns them under
+``"counters"``.
 """
 
 from __future__ import annotations
@@ -55,7 +60,8 @@ from dataclasses import dataclass
 import torch
 
 __all__ = [
-    "Record", "span", "enable", "enabled", "reset", "next_step", "count", "totals", "records",
+    "Record", "span", "enable", "enabled", "reset", "next_step", "count", "counters", "totals",
+    "records",
 ]
 
 RING = 1 << 16  # records kept (a 64-channel bank step makes about 20)
@@ -184,6 +190,12 @@ def count(name: str, n: int = 1) -> None:
     """Add ``n`` to counter ``name`` (tracing on or off)."""
     with _lock:
         _counters[name] = _counters.get(name, 0) + n
+
+
+def counters() -> dict[str, int]:
+    """The counters since the last :func:`reset` (no wait for any span)."""
+    with _lock:
+        return dict(_counters)
 
 
 def reset() -> None:

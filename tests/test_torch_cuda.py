@@ -411,7 +411,8 @@ def test_bank_step_tracing_adds_no_device_operation(dev):
     stages = ("rx.step", "rx.acquire", "rx.headers", "rx.suppress", "rx.payload")
     launching = {"span:rx." + s for s in (
         "step", "suppress", "acquire.correlate", "acquire.peaks", "acquire.estimate", "headers.extract",
-        "headers.costas", "headers.ldpc", "payload.extract", "payload.carrier", "payload.crc")}
+        "headers.costas", "headers.ldpc", "payload.extract", "payload.extract.chunk", "payload.carrier",
+        "payload.crc")}
 
     banks = {False: x.clone(), True: x.clone()}
 
@@ -524,6 +525,62 @@ def test_bank_step_graphs_bit_identical(dev, carrier):
         trace.enable(False)
         trace.reset()
     assert rx.graph_counts() == {"captured": 4, "replayed": 12, "eager": 6, "evicted": 0}
+
+
+MIXED_LENGTHS = (10, 25, 100, 1500, 27, 38, 243, 514, 1500, 1500, 1024, 1024, 42, 34, 4096)
+
+
+def _mixed_bank(rx, channels):
+    """Two runs of upstream's 15 loopback lengths (test/qa_loopback.cpp:31-49)
+    back to back on each channel of a 2^19-sample block, each packet whole,
+    channel c at upstream's carrier offset 0, +0.006 or -0.02 rad/sample
+    (c mod 3) and noise 0.05 a component."""
+    from gr4_packet_modem_tpu_torch.utils.stimulus import burst_samples
+
+    rng = np.random.default_rng(19)
+    run = np.concatenate([burst_samples(rng.integers(0, 256, n, dtype=np.uint8), packet_index=i)
+                          for i, n in enumerate(MIXED_LENGTHS)])
+    block, fp = 1 << 19, rx.front_pad
+    t = np.arange(block)
+    x = np.zeros((channels, fp + block + rx.pad_tail()), np.complex64)
+    for c in range(channels):
+        row = np.zeros(block, np.complex64)
+        at = 500 + 3000 * c
+        row[at : at + 2 * run.size] = np.tile(run, 2)
+        noise = 0.05 * (rng.standard_normal(block) + 1j * rng.standard_normal(block))
+        x[c, fp : fp + block] = row * np.exp(1j * ((0.0, 0.006, -0.02)[c % 3] * t + 0.4 * c)) + noise
+    return torch.from_numpy(x).to(rx.arm_taps.device)
+
+
+def test_bank_step_graphs_mixed4k(dev):
+    """The configuration ``rx_costas_mixed4k`` (4096-byte slots of 16,400
+    symbols, extracted in nine 2048-symbol chunks; 56 slots; Costas) on
+    four channels of upstream's loopback mix: the captured and the replayed
+    steps are bit-identical to the eager step, every packet decodes, the
+    4096-byte ones included, and every step adds the same work counters,
+    eager or replayed: ``rx.extract.chunks`` 1 + 9 and
+    ``rx.payload.slot_symbols`` 4 x 56 x 16,400."""
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver, RxConfig
+    from gr4_packet_modem_tpu_torch.utils import trace
+
+    rx = Receiver(RxConfig(max_payload_len=4096, max_detections=56, freq_bins=4, acquisition_backend="fused",
+                           acquisition_fft_size=2048, payload_carrier="costas"), dev)
+    x = _mixed_bank(rx, 4)
+    names = ("rx.extract.chunks", "rx.payload.slot_symbols")
+    steps, added = [], []
+    for _ in range(4):  # eager, captured, replayed, replayed
+        before = trace.counters()
+        steps.append(rx.bank_step(x, 0))
+        after = trace.counters()
+        added.append({n: after.get(n, 0) - before.get(n, 0) for n in names})
+    torch.cuda.synchronize()
+    for out in steps[1:]:
+        _same_step(out, steps[0])
+    assert rx.graph_counts() == {"captured": 1, "replayed": 2, "eager": 1, "evicted": 0}
+    assert added == [dict(zip(names, (10, 4 * 56 * 16400)))] * 4, added
+    res = steps[-1][2]
+    lengths = res.lengths[res.accepted]
+    assert len(lengths) == 4 * 2 * len(MIXED_LENGTHS) and int((lengths == 4096).sum()) == 4 * 2
 
 
 def test_bank_step_graphs_grouped(dev):

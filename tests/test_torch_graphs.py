@@ -71,9 +71,11 @@ class FakeGraphs(StepGraphs):
     def _replay(self, graph):
         self.replays += 1
         self.devices.append(self.current)
-        before = _build.launch_counts()
-        new = graph.fn()  # a graph's launches are counted by StepGraphs.run
+        before, counted = _build.launch_counts(), trace.counters()
+        new = graph.fn()  # a graph's launches and counters are counted by StepGraphs.run
         _build.add_launch_counts({k: before[k] - n for k, n in _build.launch_counts().items()})
+        for k, n in trace.counters().items():
+            trace.count(k, counted.get(k, 0) - n)
         _copy_into(graph.out, new)
 
 
@@ -260,6 +262,27 @@ def test_counters_reach_trace_totals(monkeypatch):
     assert toy.step_graphs.counts == {k.split(".")[-1]: v for k, v in want.items()}
 
 
+class CountingToy(Toy):
+    """A toy whose first stage counts its rows, as the receiver's stages
+    count the work their shapes set."""
+
+    @stage
+    def scale(self, x, k=2):
+        trace.count("toy.rows", x.numel())
+        return Toy.scale.__wrapped__(self, x, k)
+
+
+def test_stage_counters_are_the_eager_steps():
+    """Every step adds a stage's counters once: a capture takes back what
+    it counted, and a replay adds it."""
+    toy = CountingToy()
+    x = torch.arange(5.0)
+    for i in range(1, 5):
+        toy.step(x)
+        assert trace.counters()["toy.rows"] == 5 * i, trace.counters()
+    assert _counts(toy.step_graphs) == [1, 1, 2, 0]
+
+
 def test_step_runs_with_the_banks_device_current():
     """Every capture and replay of a step happens with the bank's device
     current (so on its device's stream, whichever device is current
@@ -436,3 +459,22 @@ def test_receiver_new_tables_drop_the_chains():
     assert not rx.step_graphs.chains and rx.graph_counts()["evicted"] == 1
     rx.bank_step(x, 0)
     assert rx.graph_counts()["eager"] == 2
+
+
+def test_receiver_graphed_steps_count_the_eager_work():
+    """The receiver's work counters at a chunked payload pass (528 symbols
+    in chunks of 64: nine, and one for the header pass): each step adds the
+    same ``rx.extract.chunks`` and ``rx.payload.slot_symbols`` whether it
+    ran eagerly, was captured or replayed, and the chunked step equals the
+    one-chunk step."""
+    rx = Receiver(RxConfig(**CFG, payload_carrier="vv", symbol_chunk=64), "cpu")
+    x = _bank(rx, 2, 0)
+    want = Receiver(RxConfig(**CFG, payload_carrier="vv"), "cpu").bank_step(x, 0)
+    trace.reset()
+    _graphed(rx)
+    rows = 2 * CFG["max_detections"]
+    for i in range(1, 4):
+        _assert_same(rx.bank_step(x, 0), want)
+        c = trace.counters()
+        assert (c["rx.extract.chunks"], c["rx.payload.slot_symbols"]) == (10 * i, rows * 528 * i), c
+    assert rx.graph_counts() == {"captured": 1, "replayed": 1, "eager": 1, "evicted": 0}

@@ -28,7 +28,8 @@ SUBSPANS = {
     "rx.headers": ("rx.headers.extract", "rx.headers.costas", "rx.headers.ldpc"),
     "rx.payload": ("rx.payload.extract", "rx.payload.carrier", "rx.payload.crc"),
 }
-PARENT = {**{s: "rx.step" for s in STAGES}, **{c: p for p, cs in SUBSPANS.items() for c in cs}}
+PARENT = {**{s: "rx.step" for s in STAGES}, **{c: p for p, cs in SUBSPANS.items() for c in cs},
+          "rx.payload.extract.chunk": "rx.payload.extract"}
 
 
 @pytest.fixture(autouse=True)
@@ -74,9 +75,11 @@ def test_off_leaves_no_span_and_no_record(vv):
     rx, x = vv
     names = _profiled_names(lambda: rx.bank_step(x, 2))
     assert not [n for n in names if n.startswith("span:")]
-    # the graph counters are kept with tracing off: one eager step
-    assert trace.records() == [] and trace.totals() == {"steps": 0, "spans": {},
-                                                        "counters": {"rx.graph.eager": 1}}
+    # the counters are kept with tracing off: one eager step of two groups,
+    # each a one-chunk header and payload extraction over 2 x 8 rows of
+    # 4 (128 + 4) payload symbols
+    counters = {"rx.graph.eager": 1, "rx.extract.chunks": 4, "rx.payload.slot_symbols": 4 * 8 * 528}
+    assert trace.records() == [] and trace.totals() == {"steps": 0, "spans": {}, "counters": counters}
     assert trace.span("rx.step") is trace.span("rx.payload", torch.device("cpu"))  # one shared no-op
 
 
