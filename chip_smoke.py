@@ -12,7 +12,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    float32 planes) and ``csrc/probe/correlate_bf16_mma.cu`` (K1's bf16
    form at N=4096 and 8192 as it was before its Hopper redesign);
 3. kernels: hold each kernel against its plain PyTorch version on the card
-   at the receive chain's shapes (K2, K2b, K4 and K5 bit for bit); time the
+   at the receive chain's shapes (K2, K2b, K4, K5 and the payload CRC
+   kernel bit for bit; the CRC kernel at the dense cells' and the mixed
+   cell's shapes, its bound the bytes of each row's own symbols); time the
    kernel, its plain version and, where one PyTorch call computes the same
    function, that call (``library_ms``: ``unfold`` and index for K2, on the
    complex bank, and K2b, the depthwise strided ``conv1d`` with TF32 off
@@ -82,7 +84,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    stream, byte-exact at their sample indices), the transceiver app's
    self-test loopback (burst with CFO 0.005 and SFO 1.2 ppm, stream with
    CFO 0.005, each 3 s unthrottled and 3 s at 3.2 Msps; every packet back
-   byte-exact, all six kernels launched) with its rates and loop split,
+   byte-exact, all seven kernels launched) with its rates and loop split,
    the loop's TX and channel timed apart, and the throttle app at 3.2 Msps. No TUN device is opened
    (``TunDevice`` needs CAP_NET_ADMIN; the CPU tests hold the native
    library);
@@ -92,7 +94,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    each held to its own checks and to its outcome (byte-exact payloads at
    their indices, the PER curve's ends, the header examples' bits and
    flags equal to their CPU runs'); K1 and K2b launched by
-   ``syncword_detection``, K5 by the header examples, all six by every
+   ``syncword_detection``, K5 by the header examples, all seven by every
    other receiving example. One line an example: its wall time, outcome
    and launches;
 13. benchmarks: every measurement program of the port
@@ -106,12 +108,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    (K2, K2b) and fused (K1 too) acquisition and no decode kernel; the
    transceiver program at 24/24; the TX program in burst and stream mode
    (64 packets), one call's samples within 1e-5 of the CPU's; bank scaling
-   (8 channels a card, 2**17) at one card, efficiency 1. All six kernels
+   (8 channels a card, 2**17) at one card, efficiency 1. All seven kernels
    launched by each receiving program; each program's JSON line printed;
 14. envelope: the u16 payload envelope of tests/test_large_payload.py
    (16,384 + 5,000 bytes at 4 bins, 65,535 bytes at 1 bin) with both
    payload carriers through the port's transmitter on the card, ``rotate``,
-   numpy noise and ``Receiver.receive``: every payload byte-exact, all six
+   numpy noise and ``Receiver.receive``: every payload byte-exact, all seven
    kernels launched, K2 and K3 on 33 or 129 payload chunks; the receive
    time (median of 3), its peak device memory and each kernel's device time
    in the acquisition and the payload pass; the V&V cases and 16 KiB Costas
@@ -155,7 +157,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; each path of the receiver with fused acquisition must have
-launched the six kernels of ``ALL_KERNELS``, and each ``fused_bf16`` path
+launched the seven kernels of ``ALL_KERNELS``, and each ``fused_bf16`` path
 ``correlate_bf16`` in K1's place.
 
 The stimulus is made in numpy by ``gr4_packet_modem_tpu_torch/utils/
@@ -197,10 +199,12 @@ REPLACES = {
                   "gr4_packet_modem_tpu/ops/acquire_pallas.py:375"),
     "correlate_bf16": ("gr4_packet_modem_tpu_torch/csrc/correlate_bf16.cu",
                        "gr4_packet_modem_tpu/ops/acquire_pallas.py:375"),
+    "crc": ("gr4_packet_modem_tpu_torch/csrc/crc.cu",
+            "none (the JAX package's CRC check is plain JAX, gr4_packet_modem_tpu/ops/crc.py::CrcEngine)"),
 }
 # the kernels a receive with fused acquisition launches (phases 4-14); K1's
 # bf16 form, correlate_bf16, runs on phase 15's fused_bf16 paths
-ALL_KERNELS = ("fetch", "fetch_rows", "matched", "costas", "ldpc", "correlate")
+ALL_KERNELS = ("fetch", "fetch_rows", "matched", "costas", "ldpc", "correlate", "crc")
 
 
 def log(msg: str) -> None:
@@ -493,6 +497,30 @@ def bench_signal(block: int, channels: int):
 # ---------------------------------------------------------------- kernels
 
 
+def crc_inputs(torch, dev, gen, d: int, max_len: int, pool, share: float):
+    """The payload CRC check's inputs at ``d`` rows of ``max_len``: random
+    symbols, the receiver's LLR scale and packed keystream, lengths drawn
+    from ``pool`` in a ``share`` of the rows and garbage (0 to 65,535)
+    in the rest, and the CRC engine's tables. Returns ``(payload_crc's
+    arguments, lengths as numpy)``."""
+    from gr4_packet_modem_tpu_torch.models.tables import tables_from_numpy
+    from gr4_packet_modem_tpu_torch.ops.crc import crc32_tables
+    from gr4_packet_modem_tpu_torch.ops.scramble import keystream_np
+    from gr4_packet_modem_tpu_torch.utils import constants as C
+
+    s_pay = 4 * (max_len + 4)
+    ks = np.packbits(keystream_np(C.HEADER_LLRS + 2 * s_pay)[C.HEADER_LLRS:])
+    t = tables_from_numpy(crc32_tables(max_len))
+    rng = np.random.default_rng(d + max_len)
+    lens = rng.choice(np.asarray(pool, np.int64), d)
+    garbage = rng.random(d) >= share
+    lens[garbage] = rng.integers(0, 65_536, int(garbage.sum()))
+    sym = torch.randn(d, s_pay, generator=gen, device=dev, dtype=torch.complex64)
+    scale = torch.tensor(np.float32(2.0 / C.LLR_NOISE_SIGMA**2), device=dev)
+    tables = tuple(t[k].to(dev) for k in ("g_packed", "init_lut", "final_xor"))
+    return (sym, scale, torch.from_numpy(ks).to(dev), torch.from_numpy(lens).to(dev), *tables), lens
+
+
 def kernel_checks(torch, card: str, probes: dict) -> dict:
     """Each kernel against its plain version at the chain's shapes; the
     time of each, of its plain version and, where one PyTorch call computes
@@ -520,6 +548,7 @@ def _kernel_checks(torch, card: str, probes: dict) -> dict:
     from gr4_packet_modem_tpu_torch.ops.acquire import AcquisitionConfig, SyncwordAcquirer
     from gr4_packet_modem_tpu_torch.ops.acquire_cuda import fused_best_power, fused_best_power_plain
     from gr4_packet_modem_tpu_torch.ops.costas_cuda import costas_track, costas_track_plain
+    from gr4_packet_modem_tpu_torch.ops.crc import payload_crc, payload_crc_plain
     from gr4_packet_modem_tpu_torch.ops.fetch_cuda import (
         fetch_plan, fetch_regions, fetch_regions_plain, fetch_rows, fetch_rows_plain,
     )
@@ -805,6 +834,31 @@ def _kernel_checks(torch, card: str, probes: dict) -> dict:
     # sign, magnitude, two minima and the scaled message's two products
     record("ldpc", shape, err, k, pms, None,
            2 * d * 128 * 4, d * iters * edges * 8, True, extra)
+
+    # the payload CRC kernel (no TPU kernel) against its plain version, the
+    # chain it replaced: the dense cells' [1536, 6160] symbols at 1536-byte
+    # slots (22 of 24 slots a 1500-byte packet) and the mixed cell's
+    # [3584, 16400] at 4096 (upstream's 15 lengths in 2,450 of 3,584 slots);
+    # the other slots garbage header lengths up to 65,535, so whole rows
+    for dd, max_len, pool, share in ((d, 1536, (1500,), 22 / 24),
+                                     (3584, 4096, (*LOOPBACK_LENGTHS, 4096), 2450 / 3584)):
+        args, lens = crc_inputs(torch, dev, gen, dd, max_len, pool, share)
+        kout = payload_crc(*args)
+        torch.cuda.synchronize()
+        pout = payload_crc_plain(*args)
+        check(all(torch.equal(a, b) for a, b in zip(kout, pout)),
+              f"crc max_len={max_len}: payload or CRC words not bit-identical to the plain version")
+        del kout, pout
+        k = timed(torch, lambda: payload_crc(*args))
+        pms = timed(torch, lambda: payload_crc_plain(*args), reps=3)["ms"]
+        # the symbols of each row's own bytes and its CRC's, the lengths,
+        # keystream and tables read once; the payload and both words written
+        n = np.clip(lens, 0, max_len)
+        nbytes = (32 * int((n + 4).sum()) + dd * 8 + (max_len + 4) + 4 * (256 + 32 * 13)
+                  + 8 * (max_len + 2) + dd * max_len + 2 * dd * 8)
+        record("crc", f"D={dd} S={4 * (max_len + 4)} max_len={max_len}", 0.0, k, pms, None,
+               nbytes, 0, max_len == 1536, {"symbol_bytes": 32 * int((n + 4).sum())})
+        del args
     _flush.clear()  # so the bank step's peak device memory leaves it out
     res["rows"] = rows
     return res
@@ -1579,7 +1633,7 @@ def apps_phase(torch, card: str, dev, seconds: float = 3.0, count: int = 100,
       dB, burst mode with CFO 0.005 and SFO 1.2 ppm and stream mode with
       CFO 0.005, each for ``seconds`` unthrottled and ``seconds`` at the
       app's 3.2 Msps: every packet sent received byte-exact after the
-      flush, through all six kernels; ``ProbeRate``'s average, packets/s,
+      flush, through all seven kernels; ``ProbeRate``'s average, packets/s,
       whether 3.2 Msps held, the median split of a loop (TX and channel
       together, throttle, RX); then the TX and the channel (with and
       without SFO) apart at the loop's shapes, each to a synchronise, with
@@ -1684,7 +1738,7 @@ def apps_phase(torch, card: str, dev, seconds: float = 3.0, count: int = 100,
 # ------------------------------------------------------------------ examples
 
 # the kernels each example must launch on the card (fused acquisition, the
-# Costas carrier); the others run no kernel of the six
+# Costas carrier); the others run no kernel of the seven
 EXAMPLE_KERNELS = {
     "syncword_detection": ("correlate", "fetch_rows"),
     "header_formatter": ("ldpc",),
@@ -1897,7 +1951,7 @@ ENVELOPE_CASES = {
 KERNEL_SYMBOLS = {  # each kernel's __global__ function in csrc/
     "fetch": "fetch_regions_kernel", "fetch_rows": "fetch_rows_kernel",
     "matched": "matched_filter_kernel", "costas": "costas_kernel", "ldpc": "ldpc_kernel",
-    "correlate": "correlate_kernel",
+    "correlate": "correlate_kernel", "crc": "payload_crc_kernel",
 }
 TIMING_DELAYS = (-0.499, -0.45, -0.25, -0.05, 0.0, 0.05, 0.26, 0.45, 0.499)
 

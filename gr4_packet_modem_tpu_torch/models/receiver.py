@@ -11,8 +11,9 @@ The receive chain runs as feed-forward passes over a sample buffer:
 3. **suppression**: drop detections that start inside a packet already
    claimed, one short scan per channel;
 4. **payload pass**: fetch, derotate, matched filter, carrier tracking
-   (V&V block estimator, or the Costas loop), LLRs, descramble, slice,
-   pack and CRC-32 check.
+   (V&V block estimator, or the Costas loop), then LLRs, descramble,
+   slice, pack and CRC-32 check (``ops/crc.py::payload_crc``: one kernel
+   on the card, each row read only up to its own length).
 
 A bank ``[C, N]`` runs acquisition batched over channels and both decode
 passes as one flat batch of all channels' detections; suppression stays
@@ -50,11 +51,11 @@ from ..utils.trace import count, next_step, span
 from ..ops.acquire import AcquisitionConfig, Detections, SyncwordAcquirer
 from ..ops.costas import PI, TWO_PI
 from ..ops.costas_cuda import costas_track
-from ..ops.crc import crc32_compute
+from ..ops.crc import payload_crc
 from ..ops.fetch_cuda import fetch_regions
 from ..ops.ldpc import HeaderLdpcDecoder, combine_repetition
 from ..ops.matched_cuda import matched_filter
-from ..ops.packing import binary_slice, pack_bits
+from ..ops.packing import pack_bits
 from ..ops.scramble import descramble_soft, keystream_np
 from .tables import receiver_tables, tables_from_numpy
 
@@ -233,8 +234,10 @@ class Receiver(nn.Module):
             "ks_header", torch.tensor(ks[: C.HEADER_LLRS], device=device),
             persistent=False,
         )
+        # the payload's keystream packed MSB first: byte i flips the LLRs of
+        # payload byte i (ops/crc.py::payload_crc)
         self.register_buffer(
-            "ks_payload", torch.tensor(ks[C.HEADER_LLRS :], device=device),
+            "ks_payload", torch.tensor(np.packbits(ks[C.HEADER_LLRS :]), device=device),
             persistent=False,
         )
 
@@ -558,27 +561,10 @@ class Receiver(nn.Module):
                         syms, hdr.phase, hdr.freq, offset=_HEADER_REGION_SYMS
                     )
             with span("rx.payload.crc"):
-                llrs = torch.view_as_real(corrected).reshape(
-                    corrected.shape[0], -1
-                ) * self.llr_scale  # [D, 2*s_pay]
-                bits = binary_slice(descramble_soft(llrs, self.ks_payload))  # invert=true slicer
-                all_bytes = pack_bits(bits, 8).to(torch.uint8)  # [D, s_pay/4]
                 plen = hdr.packet_length
-                pos = torch.arange(cfg.max_payload_len, device=x.device)
-                payload = torch.where(
-                    pos[None, :] < plen[:, None], all_bytes[:, : cfg.max_payload_len], 0
-                )
-                crc = crc32_compute(
-                    payload, torch.clamp(plen, 0, cfg.max_payload_len),
+                payload, crc, crc_rx = payload_crc(
+                    corrected, self.llr_scale, self.ks_payload, plen,
                     self.crc_g_packed, self.crc_init_lut, self.crc_final_xor,
-                )
-                # received CRC: the 4 bytes at plen..plen+4, big-endian
-                plen_c = torch.clamp(plen, 0, all_bytes.shape[1] - C.CRC_NUM_BYTES)
-                at = plen_c[:, None] + torch.arange(C.CRC_NUM_BYTES, device=x.device)
-                rx_bytes = all_bytes.gather(1, at).to(torch.int64)
-                crc_rx = (
-                    rx_bytes[:, 0] << 24 | rx_bytes[:, 1] << 16 | rx_bytes[:, 2] << 8
-                    | rx_bytes[:, 3]
                 )
                 # suppressed or invalid slots hold garbage extractions and must not
                 # report a coincidental CRC pass

@@ -37,7 +37,7 @@ __all__ = [
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
-KERNELS = ("fetch", "fetch_rows", "matched", "costas", "ldpc", "correlate", "correlate_bf16")
+KERNELS = ("fetch", "fetch_rows", "matched", "costas", "ldpc", "correlate", "crc", "correlate_bf16")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,6 +64,9 @@ _SIGNATURES = {
     "pm_costas_track": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # llrs, totals, chk_vars, var_edges, b, m, dmax, n, vdeg, iters, alpha, stream
     "pm_ldpc_totals": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # sym, llr_scale, ks, plen, tables, init_lut, final_xor, payload, words, d, max_len,
+    # tiles, stream
+    "pm_payload_crc": [_P] * 9 + [_I, _I, _I, _P],
 }
 
 _launches = dict.fromkeys(KERNELS, 0)

@@ -17,6 +17,12 @@ words are carried in int64 and stay below 2**32.
 blocks with their options (crc_append.hpp:66-73, crc_check.hpp): the CRC
 covers ``data[skip:]``, is written big-endian or byte-reversed, and packets
 not longer than the skipped header pass through.
+
+:func:`payload_crc` is the receiver's payload check from the corrected
+symbols to the bytes and both CRC words: on CUDA tensors one kernel
+(``csrc/crc.cu``, which reads each row's symbols only up to its own
+length), on CPU tensors :func:`payload_crc_plain`, the chain of PyTorch
+operations it replaces.
 """
 
 from __future__ import annotations
@@ -27,10 +33,17 @@ import numpy as np
 import torch
 
 from ..utils import constants as C
+from ..utils.device import kernel_route
+from ..utils.trace import count
+from . import _build
+from .packing import binary_slice, pack_bits, unpack_bits
+from .scramble import descramble_soft
 
 __all__ = [
     "CrcRef", "crc32_ref", "crc32_tables", "crc32_compute", "crc_bytes_be",
     "CrcEngine", "make_crc32_engine", "BatchedCrcAppend", "BatchedCrcCheck",
+    "THREADS", "SPAN", "TILE", "SHIFT_LEVELS", "zero_shift_matrices",
+    "payload_crc_tables", "payload_crc", "payload_crc_plain",
 ]
 
 
@@ -314,3 +327,115 @@ class BatchedCrcCheck:
             return ok, data, lengths
         pos = torch.arange(width, device=data.device)[None, :]
         return ok, torch.where(pos < body_end[:, None], data, 0).to(torch.uint8), body_end
+
+
+# ------------------------------------------------ the payload pass's check
+
+THREADS = 256  # threads a block, one block a row (csrc/crc.cu: kThreads)
+SPAN = 16  # tile bytes a thread folds (kSpan)
+TILE = THREADS * SPAN  # bytes a tile of the right-aligned frame (kTile)
+SHIFT_LEVELS = 13  # shift matrices Z^(2^m), m < 13, up to a tile (kShiftLevels)
+
+
+def _apply_matrix(mat: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """A 32 x 32 GF(2) matrix (its 32 column words) applied to each word of
+    ``v``: the XOR of the columns of ``v``'s set bits."""
+    bits = (v[:, None] >> np.arange(32, dtype=np.uint64)) & 1
+    return np.bitwise_xor.reduce(np.where(bits == 1, mat[None, :], 0), axis=1)
+
+
+def zero_shift_matrices() -> np.ndarray:
+    """uint32 ``[SHIFT_LEVELS, 32]``: row ``m`` holds the columns of
+    Z^(2^m), the CRC register clocked through 2^m zero bytes (column i is
+    the image of the register ``1 << i``), each the square of the one
+    before."""
+    table = CrcRef().table
+    one = np.array([_zero_byte_step(1 << i, table) for i in range(32)], np.uint64)
+    mats = [one]
+    for _ in range(SHIFT_LEVELS - 1):
+        mats.append(_apply_matrix(mats[-1], mats[-1]))
+    return np.stack(mats).astype(np.uint32)
+
+
+def payload_crc_tables() -> np.ndarray:
+    """The kernel's own tables as one uint32 array: the byte table (256)
+    and :func:`zero_shift_matrices` (``SHIFT_LEVELS`` x 32). The initial
+    register over n bytes and the final XOR come from the CRC engine's
+    tables (:func:`crc32_tables`), as :func:`crc32_compute` takes them."""
+    return np.concatenate([CrcRef().table.astype(np.uint32), zero_shift_matrices().reshape(-1)])
+
+
+@lru_cache(maxsize=None)  # kept: captured CUDA graphs read these tensors by address
+def _payload_device_tables(device: torch.device) -> torch.Tensor:
+    """:func:`payload_crc_tables` on ``device`` (int32, the same bits)."""
+    return torch.from_numpy(payload_crc_tables().view(np.int32)).to(device)
+
+
+def payload_crc_plain(
+    corrected: torch.Tensor, llr_scale: torch.Tensor, ks: torch.Tensor, plen: torch.Tensor,
+    g_packed: torch.Tensor, init_lut: torch.Tensor, final_xor: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The check as PyTorch operations: LLRs scaled, descrambled, sliced
+    (a positive LLR is bit 0) and packed MSB first; the payload masked at
+    ``plen``; :func:`crc32_compute` over its first ``clamp(plen, 0,
+    max_len)`` bytes; the received CRC the 4 big-endian bytes after them."""
+    max_len = init_lut.shape[0] - 1
+    llrs = torch.view_as_real(corrected).reshape(corrected.shape[0], -1) * llr_scale
+    bits = binary_slice(descramble_soft(llrs, unpack_bits(ks, 8)))
+    all_bytes = pack_bits(bits, 8).to(torch.uint8)  # [D, max_len + 4]
+    pos = torch.arange(max_len, device=corrected.device)
+    payload = torch.where(pos[None, :] < plen[:, None], all_bytes[:, :max_len], 0)
+    crc = crc32_compute(payload, torch.clamp(plen, 0, max_len), g_packed, init_lut, final_xor)
+    plen_c = torch.clamp(plen, 0, all_bytes.shape[1] - C.CRC_NUM_BYTES)
+    at = plen_c[:, None] + torch.arange(C.CRC_NUM_BYTES, device=corrected.device)
+    rx_bytes = all_bytes.gather(1, at).to(torch.int64)
+    crc_rx = rx_bytes[:, 0] << 24 | rx_bytes[:, 1] << 16 | rx_bytes[:, 2] << 8 | rx_bytes[:, 3]
+    return payload, crc, crc_rx
+
+
+def payload_crc(
+    corrected: torch.Tensor, llr_scale: torch.Tensor, ks: torch.Tensor, plen: torch.Tensor,
+    g_packed: torch.Tensor, init_lut: torch.Tensor, final_xor: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Payload bytes and CRC words of every row. ``corrected``: complex64
+    ``[D, 4 (max_len + 4)]`` payload symbols; ``llr_scale``: float32, one
+    value; ``ks``: uint8 ``[max_len + 4]``, the payload keystream packed
+    MSB first (byte i: the bits of payload byte i's 8 LLRs); ``plen``:
+    int64 ``[D]``; the CRC engine's tables for ``max_len`` as
+    :func:`crc32_compute` takes them (the kernel reads ``init_lut`` and
+    ``final_xor``). Returns ``(payload uint8 [D, max_len], crc int64 [D],
+    crc_rx int64 [D])``: the bytes before ``plen`` (zeros from there), the
+    CRC-32 of the first ``clamp(plen, 0, max_len)`` of them and the
+    big-endian word of the 4 bytes after them. The kernel counts its rows
+    in ``rx.payload.crc_kernel_rows``."""
+    route = kernel_route(corrected, llr_scale, ks, plen, g_packed, init_lut, final_xor)
+    max_len = init_lut.shape[0] - 1
+    d = corrected.shape[0]
+    s = 4 * (max_len + C.CRC_NUM_BYTES)
+    if corrected.dtype != torch.complex64 or tuple(corrected.shape) != (d, s):
+        raise ValueError(f"symbols must be complex64 [D, {s}], got {corrected.dtype} {tuple(corrected.shape)}")
+    if llr_scale.dtype != torch.float32 or llr_scale.numel() != 1:
+        raise ValueError(f"llr_scale must be one float32, got {llr_scale.dtype} {tuple(llr_scale.shape)}")
+    if ks.dtype != torch.uint8 or tuple(ks.shape) != (s // 4,):
+        raise ValueError(f"keystream must be uint8 [{s // 4}], got {ks.dtype} {tuple(ks.shape)}")
+    if plen.dtype != torch.int64 or tuple(plen.shape) != (d,):
+        raise ValueError(f"lengths must be int64 [{d}], got {plen.dtype} {tuple(plen.shape)}")
+    if (g_packed.dtype, init_lut.dtype, final_xor.dtype) != (torch.int64,) * 3 or (
+        tuple(g_packed.shape), init_lut.ndim, final_xor.numel()) != ((8 * max_len,), 1, 1):
+        raise ValueError("CRC tables must be int64 g_packed [8 max_len], init_lut [max_len + 1], final_xor []")
+    if route == "plain":
+        return payload_crc_plain(corrected, llr_scale, ks, plen, g_packed, init_lut, final_xor)
+    if not all(t.is_contiguous() for t in (corrected, ks, plen, init_lut)) or corrected.data_ptr() % 16:
+        raise ValueError("payload_crc needs contiguous tensors and 16-byte aligned symbols")
+    payload = corrected.new_empty(d, max_len, dtype=torch.uint8)
+    words = corrected.new_empty(2, d, dtype=torch.int64)
+    if d:
+        _build.launch(
+            "crc", "pm_payload_crc", corrected.device,
+            corrected.data_ptr(), llr_scale.data_ptr(), ks.data_ptr(), plen.data_ptr(),
+            _payload_device_tables(corrected.device).data_ptr(), init_lut.data_ptr(),
+            final_xor.data_ptr(), payload.data_ptr(), words.data_ptr(), d, max_len,
+            -(-max_len // TILE), _build.stream_of(corrected),
+        )
+        count("rx.payload.crc_kernel_rows", d)
+    return payload, words[0], words[1]

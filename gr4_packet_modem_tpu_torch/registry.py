@@ -12,7 +12,9 @@ tensors, the note names it:
   fetch (acquisition estimates);
 - K3 ``csrc/matched.cu``: polyphase matched filter;
 - K4 ``csrc/costas.cu``: the Costas loop;
-- K5 ``csrc/ldpc.cu``: header LDPC belief propagation.
+- K5 ``csrc/ldpc.cu``: header LDPC belief propagation;
+- ``csrc/crc.cu`` (no TPU counterpart): the payload pass's slice, pack and
+  CRC-32 check.
 
 On CPU tensors the same counterparts run their plain PyTorch versions.
 
@@ -120,11 +122,12 @@ BLOCK_REGISTRY: dict[str, BlockEntry] = {
     "BinarySlicer": _E("binary_slicer.hpp", "op", "ops.packing.binary_slice"),
     "CrcCheck": _E("crc_check.hpp", "op",
         "ops.crc.BatchedCrcCheck",
-        "batched check (also fused in Receiver.decode_payloads)"),
+        "batched check (also fused in Receiver.decode_payloads: ops.crc.payload_crc, "
+        "csrc/crc.cu on CUDA tensors)"),
     "PacketTypeFilter": _E("packet_type_filter.hpp", "subsumed",
         "models.receiver.Receiver.decode_payloads", "accepted mask"),
     "PacketReceiver": _E("packet_receiver.hpp", "model",
-        "models.receiver.Receiver", "K1, K2, K2b, K3, K4, K5"),
+        "models.receiver.Receiver", "K1, K2, K2b, K3, K4, K5, csrc/crc.cu"),
     # ------------------------------------------------- IO / flow / latency
     "TunSource": _E("tun_source.hpp", "io", "io.tun.TunDevice",
         "idle-packet + credit logic in apps.packet_transceiver and "

@@ -264,25 +264,42 @@ class StepGraphs:
         graph.replay()
 
 
+def _collect(a, seen: dict[int, torch.Tensor]) -> None:
+    """Each non-empty tensor in ``a`` (tensors, in tuples and dataclasses)
+    into ``seen``, by identity."""
+    if isinstance(a, torch.Tensor):
+        if a.numel():
+            seen.setdefault(id(a), a)
+    elif dataclasses.is_dataclass(a) and not isinstance(a, type):
+        for f in dataclasses.fields(a):
+            _collect(getattr(a, f.name), seen)
+    elif isinstance(a, (tuple, list)):
+        for v in a:
+            _collect(v, seen)
+
+
+def _rebuild(a, copies: dict[int, torch.Tensor]):
+    """``a`` with each tensor replaced by its copy in ``copies``."""
+    if isinstance(a, torch.Tensor):
+        return copies[id(a)] if a.numel() else torch.empty_like(a)
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        return type(a)(*(_rebuild(getattr(a, f.name), copies) for f in dataclasses.fields(a)))
+    if isinstance(a, (tuple, list)):
+        return type(a)(_rebuild(v, copies) for v in a)
+    return a
+
+
 def owned(out):
     """``out`` (tensors, in tuples and dataclasses) with every tensor
     copied into one new buffer, by one concatenation: the caller owns the
     result, and later replays cannot change it. Tensors that share storage
-    in ``out`` (the same object) share it in the copy too."""
+    in ``out`` (the same object) share it in the copy too. Nothing else
+    holds the buffer (the helpers are module functions, not closures that
+    would hold themselves and their copies in a reference cycle): it is
+    freed with the caller's last reference, not at the next run of the
+    cyclic garbage collector."""
     seen: dict[int, torch.Tensor] = {}
-
-    def collect(a):
-        if isinstance(a, torch.Tensor):
-            if a.numel():
-                seen.setdefault(id(a), a)
-        elif dataclasses.is_dataclass(a) and not isinstance(a, type):
-            for f in dataclasses.fields(a):
-                collect(getattr(a, f.name))
-        elif isinstance(a, (tuple, list)):
-            for v in a:
-                collect(v)
-
-    collect(out)
+    _collect(out, seen)
     # widest elements first, so that every piece's offset is aligned to its size
     ts = sorted(seen.values(), key=lambda t: -t.element_size())
     if not ts:
@@ -293,14 +310,4 @@ def owned(out):
         n = t.numel() * t.element_size()
         copies[id(t)] = buf[off : off + n].view(t.dtype).view(t.shape)
         off += n
-
-    def rebuild(a):
-        if isinstance(a, torch.Tensor):
-            return copies[id(a)] if a.numel() else torch.empty_like(a)
-        if dataclasses.is_dataclass(a) and not isinstance(a, type):
-            return type(a)(*(rebuild(getattr(a, f.name)) for f in dataclasses.fields(a)))
-        if isinstance(a, (tuple, list)):
-            return type(a)(rebuild(v) for v in a)
-        return a
-
-    return rebuild(out)
+    return _rebuild(out, copies)

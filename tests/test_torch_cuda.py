@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from gr4_packet_modem_tpu_torch.ops import _build, ldpc  # noqa: E402
 from gr4_packet_modem_tpu_torch.ops.costas_cuda import costas_track, costas_track_plain  # noqa: E402
+from gr4_packet_modem_tpu_torch.ops.crc import crc32_ref, crc32_tables, payload_crc, payload_crc_plain  # noqa: E402
 from gr4_packet_modem_tpu_torch.ops.fetch_cuda import fetch_regions, fetch_regions_plain  # noqa: E402
 from gr4_packet_modem_tpu_torch.ops.ldpc_cuda import ldpc_totals  # noqa: E402
 from gr4_packet_modem_tpu_torch.ops.matched_cuda import matched_filter, matched_filter_plain  # noqa: E402
@@ -558,15 +559,16 @@ def test_bank_step_graphs_mixed4k(dev):
     four channels of upstream's loopback mix: the captured and the replayed
     steps are bit-identical to the eager step, every packet decodes, the
     4096-byte ones included, and every step adds the same work counters,
-    eager or replayed: ``rx.extract.chunks`` 1 + 9 and
-    ``rx.payload.slot_symbols`` 4 x 56 x 16,400."""
+    eager or replayed: ``rx.extract.chunks`` 1 + 9,
+    ``rx.payload.slot_symbols`` 4 x 56 x 16,400 and
+    ``rx.payload.crc_kernel_rows`` 4 x 56."""
     from gr4_packet_modem_tpu_torch.models.receiver import Receiver, RxConfig
     from gr4_packet_modem_tpu_torch.utils import trace
 
     rx = Receiver(RxConfig(max_payload_len=4096, max_detections=56, freq_bins=4, acquisition_backend="fused",
                            acquisition_fft_size=2048, payload_carrier="costas"), dev)
     x = _mixed_bank(rx, 4)
-    names = ("rx.extract.chunks", "rx.payload.slot_symbols")
+    names = ("rx.extract.chunks", "rx.payload.slot_symbols", "rx.payload.crc_kernel_rows")
     steps, added = [], []
     for _ in range(4):  # eager, captured, replayed, replayed
         before = trace.counters()
@@ -577,7 +579,7 @@ def test_bank_step_graphs_mixed4k(dev):
     for out in steps[1:]:
         _same_step(out, steps[0])
     assert rx.graph_counts() == {"captured": 1, "replayed": 2, "eager": 1, "evicted": 0}
-    assert added == [dict(zip(names, (10, 4 * 56 * 16400)))] * 4, added
+    assert added == [dict(zip(names, (10, 4 * 56 * 16400, 4 * 56)))] * 4, added
     res = steps[-1][2]
     lengths = res.lengths[res.accepted]
     assert len(lengths) == 4 * 2 * len(MIXED_LENGTHS) and int((lengths == 4096).sum()) == 4 * 2
@@ -710,8 +712,8 @@ def test_header_decoder_card_matches_cpu(dev, b):
 
 def test_transceiver_app_burst_loopback_on_card(dev):
     """The transceiver app in burst mode on the card (CFO 0.005, SFO 1.2
-    ppm): every packet sent is received byte-exact, through all six
-    kernels."""
+    ppm): every packet sent is received byte-exact, through every kernel
+    of a receive."""
     from gr4_packet_modem_tpu_torch.apps import packet_transceiver
 
     _build.reset_launch_counts()
@@ -757,3 +759,127 @@ def test_u16_max_costas_decodes_on_card(dev):
     np.testing.assert_array_equal(res.data[row, :max_len].cpu().numpy(), payload)
     assert launches["costas"] == 2 and launches["matched"] == 1 + 129, launches
     assert all(launches[k] > 0 for k in RECEIVE_KERNELS), launches
+
+
+def _crc_pass_rows(d):
+    """The rows of :func:`_crc_rows` that carry their own CRC."""
+    return sorted({2 % d, d // 2, (d // 2 + 1) % d, d - 1})
+
+
+def _crc_rows(dev, d, max_len, seed):
+    """Payload symbols ``[d, 4 (max_len + 4)]`` of random bytes with ragged
+    lengths (0, 1, ``max_len``, past it up to 65,535, negative, the rest
+    random), a few rows carrying their own CRC after their bytes, and some
+    symbols exactly +0.0, -0.0 and NaN; with the LLR scale, the packed
+    keystream and the CRC tables of a receiver of ``max_len``: the
+    arguments of ``payload_crc``."""
+    from gr4_packet_modem_tpu_torch.models.tables import tables_from_numpy
+    from gr4_packet_modem_tpu_torch.ops.scramble import keystream_np
+    from gr4_packet_modem_tpu_torch.utils import constants as C
+
+    s_pay = 4 * (max_len + 4)
+    ks = keystream_np(C.HEADER_LLRS + 2 * s_pay)[C.HEADER_LLRS :]
+    scale = np.float32(2.0 / C.LLR_NOISE_SIGMA**2)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sym = torch.randn(d, s_pay, generator=g, device=dev, dtype=torch.complex64)
+    rng = np.random.default_rng(seed)
+    plen = rng.integers(0, max_len + 1, d)
+    edges = (0, 1, max_len, max_len + 1, 65_535, -2)
+    plen[: min(d, 6)] = edges[:d]
+    if d > 9:
+        plen[6 : max(6, d // 4)] = rng.integers(max_len + 1, 65_536, max(0, d // 4 - 6))  # garbage headers
+    flat = torch.view_as_real(sym).view(d, 2 * s_pay)
+    flat[7 % d, :40] = 0.0
+    flat[8 % d, 3::5] = -0.0
+    flat[9 % d, 11::7] = float("nan")
+    for row in _crc_pass_rows(d):  # CRC after the bytes: these pass
+        n = min(max(int(plen[row]), 0), max_len)
+        v = flat[row].cpu().numpy()
+        p = v * scale
+        msg = np.packbits((np.where(ks == 1, -p, p) < 0).astype(np.uint8))[:n]
+        bits = np.unpackbits(np.frombuffer(crc32_ref(msg).to_bytes(4, "big"), np.uint8))
+        at = slice(8 * n, 8 * n + 32)
+        sign = 1.0 - 2.0 * (bits ^ ks[at])
+        flat[row, at] = torch.from_numpy((0.5 * sign).astype(np.float32)).to(dev)
+    ks_bytes = torch.from_numpy(np.packbits(ks)).to(dev)
+    t = tables_from_numpy(crc32_tables(max_len))
+    tables = tuple(t[k].to(dev) for k in ("g_packed", "init_lut", "final_xor"))
+    return (sym, torch.tensor(scale, device=dev), ks_bytes, torch.from_numpy(plen).to(dev), *tables)
+
+
+def _same_check(a, b):
+    for u, v in zip(a, b):
+        assert u.dtype == v.dtype and u.shape == v.shape and torch.equal(u, v)
+    assert torch.equal(a[1] == a[2], b[1] == b[2])
+
+
+@pytest.mark.parametrize("d,max_len", [(1536, 1536), (3584, 4096), (37, 128), (5, 65535)])
+def test_payload_crc_kernel_matches_plain(dev, d, max_len):
+    """The payload CRC kernel bit-identical to its plain version on every
+    row: payload bytes, the CRC words computed and received, and their
+    equality, at the dense cells' [1536, 6160] / 1536 B and the mixed
+    cell's [3584, 16400] / 4096 B, a small bound and the u16 bound (16
+    tiles a row). One launch; ``rx.payload.crc_kernel_rows`` counts D."""
+    from gr4_packet_modem_tpu_torch.utils import trace
+
+    args = _crc_rows(dev, d, max_len, seed=d + max_len)
+    before_l, before_c = _build.launch_counts()["crc"], trace.counters().get("rx.payload.crc_kernel_rows", 0)
+    got = payload_crc(*args)
+    assert _build.launch_counts()["crc"] == before_l + 1
+    assert trace.counters()["rx.payload.crc_kernel_rows"] == before_c + d
+    torch.cuda.synchronize()
+    want = payload_crc_plain(*args)
+    _same_check(got, want)
+    assert set(_crc_pass_rows(d)) <= set(torch.nonzero(got[1] == got[2]).flatten().tolist())
+
+
+@pytest.mark.parametrize("d,max_len", [(1536, 1536), (3584, 4096)])
+def test_payload_crc_kernel_in_a_cuda_graph(dev, d, max_len):
+    """The kernel captured into a CUDA graph: each replay, with the lengths
+    and the symbols changed in place between replays, is bit-identical to
+    the plain version on the inputs of that moment."""
+    args = _crc_rows(dev, d, max_len, seed=3)
+    sym, plen = args[0], args[3]
+    payload_crc(*args)  # the library loaded outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = payload_crc(*args)
+    rng = np.random.default_rng(4)
+    for i in range(3):
+        if i:
+            plen.copy_(torch.from_numpy(rng.integers(-5, 70_000, d)).to(dev))
+            sym.copy_(_crc_rows(dev, d, max_len, seed=10 + i)[0])
+        graph.replay()
+        torch.cuda.synchronize()
+        _same_check(out, payload_crc_plain(*args))
+
+
+@pytest.mark.parametrize("carrier", ["vv", "costas"])
+def test_bank_step_graphs_check_payloads_in_one_kernel(dev, carrier, monkeypatch):
+    """A graphed ``bank_step`` (eager, captured, replayed) checks its
+    payloads with the kernel alone: one ``crc`` launch a step,
+    ``rx.payload.crc_kernel_rows`` D a step, and ``crc32_compute`` never
+    called; the replayed step bit-identical to the eager one."""
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver, RxConfig
+    from gr4_packet_modem_tpu_torch.ops import crc
+    from gr4_packet_modem_tpu_torch.utils import trace
+
+    def refused(*a, **k):
+        raise AssertionError("crc32_compute called on the card's path")
+
+    monkeypatch.setattr(crc, "crc32_compute", refused)
+    rx = Receiver(RxConfig(max_payload_len=128, max_detections=8, freq_bins=1, payload_carrier=carrier), dev)
+    x = _graph_bank(rx, 4, 2)
+    steps = []
+    for _ in range(3):
+        _build.reset_launch_counts()
+        before = trace.counters().get("rx.payload.crc_kernel_rows", 0)
+        steps.append(rx.bank_step(x, 0))
+        assert _build.launch_counts()["crc"] == 1
+        assert trace.counters()["rx.payload.crc_kernel_rows"] - before == 4 * 8
+    torch.cuda.synchronize()
+    assert rx.graph_counts() == {"captured": 1, "replayed": 1, "eager": 1, "evicted": 0}
+    for out in steps[1:]:
+        _same_step(out, steps[0])
+    assert int(steps[-1][2].accepted.sum()) == 4 * 3

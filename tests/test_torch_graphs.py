@@ -305,7 +305,8 @@ def test_step_on_a_device_makes_it_current():
     assert not sg.engages(torch.zeros(3))
 
 
-@pytest.mark.parametrize("cache", [crc._device_tables, acquire_cuda._tables, acquire_cuda._bf16_device_tables])
+@pytest.mark.parametrize("cache", [crc._device_tables, crc._payload_device_tables, acquire_cuda._tables,
+                                   acquire_cuda._bf16_device_tables])
 def test_graphed_stages_device_tables_are_never_dropped(cache):
     """The caches of device tables that captured graphs read by address
     keep every entry: a dropped table's memory would be reused under a
@@ -374,6 +375,26 @@ def test_owned_packs_one_buffer():
     assert out[0].a is out[2][0]  # shared in, shared out
     idx.add_(1)
     assert torch.equal(out[0].a, torch.arange(7))
+
+
+def test_owned_frees_its_buffer_with_the_last_reference():
+    """With the cyclic garbage collector off, dropping ``owned``'s result
+    frees the buffer at once: nothing else holds it (a step's copied-out
+    results would otherwise linger until the collector runs, and a window's
+    peak memory would follow the collector's phase)."""
+    import gc
+    import weakref
+
+    src = (torch.arange(1000), torch.ones(10, dtype=torch.int8))
+    gc.collect()
+    gc.disable()
+    try:
+        out = owned(src)
+        views = [weakref.ref(t) for t in out]
+        del out
+        assert all(v() is None for v in views)
+    finally:
+        gc.enable()
 
 
 # -------------------------------------------------------- the receiver

@@ -27,7 +27,11 @@ its constants and loop bounds read from the kernel's source): every
 frame's forward pass once and every (frame, bin) once, every table block
 once a pass and in order, each product finding its own block in the
 stages at its barrier parity, and no copy started after a block's last
-product.
+product. The payload CRC kernel (``csrc/crc.cu``): its walk over the
+right-aligned frame (tiles of 4096 bytes, 16-byte spans folded a thread,
+the warp and block trees joined by the shift matrices, the running
+register shifted a tile) is held against the host oracle, and its shift
+matrices against zero bytes clocked one at a time.
 """
 
 import re
@@ -58,7 +62,7 @@ from gr4_packet_modem_tpu_torch.ops.acquire_cuda import (  # noqa: E402
     replica_table_bf16,
     stream_plan,
 )
-from gr4_packet_modem_tpu_torch.ops import fetch_cuda, ldpc, ldpc_cuda  # noqa: E402
+from gr4_packet_modem_tpu_torch.ops import crc, fetch_cuda, ldpc, ldpc_cuda  # noqa: E402
 from gr4_packet_modem_tpu_torch.ops.matched_cuda import matched_filter_plain  # noqa: E402
 from gr4_packet_modem_tpu_torch.utils.stimulus import ldpc_encode_bytes  # noqa: E402
 
@@ -620,3 +624,95 @@ def test_k1_stream_constants_are_the_kernels():
         "for (int tb = 0; tb < S::kBlocks; ++tb) {",
     ):
         assert line in src, line
+
+
+# ------------------------------------------------- the payload CRC kernel
+
+
+def _shift(mat: np.ndarray, r: np.ndarray) -> np.ndarray:
+    """csrc/crc.cu's ``shift``: each word of ``r`` through the 32 columns."""
+    y = np.zeros_like(r)
+    for i in range(32):
+        y ^= np.where((r >> np.uint64(i)) & np.uint64(1) == 1, mat[i], np.uint64(0))
+    return y
+
+
+def crc_kernel_walk(msg: np.ndarray, max_len: int) -> int:
+    """The CRC that csrc/crc.cu computes for a row whose first ``n`` bytes
+    are ``msg``, along its walk: the bytes right-aligned in a frame of
+    whole tiles, the tiles from the one that holds byte 0, each thread's
+    span folded from a zero register, the warp tree (shifts of 16 << l
+    bytes), warp 0's tree over the warps (512 << l), the running register
+    shifted a tile; then init_lut[n] and the final XOR."""
+    t = crc.payload_crc_tables().astype(np.uint64)
+    levels, threads, span, tile_len = crc.SHIFT_LEVELS, crc.THREADS, crc.SPAN, crc.TILE
+    byte_table, shifts = t[:256], t[256:].reshape(levels, 32)
+    engine = crc.crc32_tables(max_len)
+    init, final = engine["init_lut"].astype(np.uint64), np.uint64(engine["final_xor"])
+    n = msg.size
+    tiles = -(-max_len // tile_len)
+    lead = tiles * tile_len - n
+    frame = np.zeros(tiles * tile_len, np.uint64)
+    frame[lead:] = msg
+    log_span = span.bit_length() - 1
+    acc = np.zeros(1, np.uint64)
+    for k in range(lead // tile_len, tiles):
+        spans = frame[k * tile_len : (k + 1) * tile_len].reshape(threads, span)
+        r = np.zeros(threads, np.uint64)
+        for m in range(span):
+            r = byte_table[(r ^ spans[:, m]) & np.uint64(0xFF)] ^ (r >> np.uint64(8))
+        r = r.reshape(threads // 32, 32)
+        for lv in range(5):
+            o = 1 << lv
+            left = np.arange(0, 32, 2 * o)
+            r[:, left] = _shift(shifts[log_span + lv], r[:, left]) ^ r[:, left + o]
+        w = r[:, 0].copy()
+        for lv in range(3):
+            o = 1 << lv
+            left = np.arange(0, w.size, 2 * o)
+            w[left] = _shift(shifts[log_span + 5 + lv], w[left]) ^ w[left + o]
+        acc = _shift(shifts[levels - 1], acc) ^ w[0]
+    return int(acc[0] ^ init[n] ^ final)
+
+
+@pytest.mark.parametrize("max_len", [1536, 4096, 65535])
+def test_crc_kernel_walk_equals_oracle(max_len):
+    """The kernel's walk gives the CRC-32 of every row length that meets
+    its edges: none, one byte, a span and a byte either side, a warp's
+    512, a tile's 4096 and past it, up to ``max_len``."""
+    rng = np.random.default_rng(max_len)
+    lengths = {0, 1, 15, 16, 17, 511, 512, 513, max_len - 1, max_len, int(rng.integers(2, max_len))}
+    lengths |= {n for n in (4095, 4096, 4097, 8193) if n <= max_len}
+    for n in sorted(lengths):
+        msg = rng.integers(0, 256, n, dtype=np.uint8)
+        assert crc_kernel_walk(msg, max_len) == crc.crc32_ref(msg), n
+
+
+def test_crc_shift_matrices_clock_zero_bytes():
+    """Z^(2^m)(r) of the tables is r clocked through 2^m zero bytes one at
+    a time through the byte table, for every level the kernel uses."""
+    table = crc.CrcRef().table
+    mats = crc.zero_shift_matrices().astype(np.uint64)
+    assert mats.shape == (crc.SHIFT_LEVELS, 32) and 1 << (crc.SHIFT_LEVELS - 1) == crc.TILE
+    rng = np.random.default_rng(3)
+    regs = rng.integers(0, 2**32, 3, dtype=np.uint64)
+    for m in range(crc.SHIFT_LEVELS):
+        for r0 in regs:
+            r = int(r0)
+            for _ in range(1 << m):
+                r = int(table[r & 0xFF]) ^ (r >> 8)
+            assert int(_shift(mats[m], np.array([r0], np.uint64))[0]) == r, m
+
+
+def test_crc_kernel_constants_are_the_wrappers():
+    """csrc/crc.cu's block, span, tile and shift levels, and its tables'
+    size, are ``ops/crc.py``'s."""
+    src = (Path(crc.__file__).parents[1] / "csrc" / "crc.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert consts == {"kThreads": str(crc.THREADS), "kSpan": str(crc.SPAN), "kLogSpan": "4",
+                      "kShiftLevels": str(crc.SHIFT_LEVELS), "kShifts": "256"}
+    assert "constexpr int kTile = kThreads * kSpan;" in src
+    assert "constexpr int kTables = kShifts + 32 * kShiftLevels;" in src
+    assert crc.SPAN == 1 << 4 and crc.TILE == crc.THREADS * crc.SPAN
+    t = crc.payload_crc_tables()
+    assert t.dtype == np.uint32 and t.size == 256 + 32 * crc.SHIFT_LEVELS
