@@ -7,10 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: require CUDA, print the card's name and power limit;
 2. build: compile the CUDA kernels (``gr4_packet_modem_tpu_torch/csrc``)
    with nvcc, one process per source, into ``build/kernels/``, and beside
-   them, in parallel, the probes: ``csrc/probe/chain.cu`` (chain latency
-   and an empty kernel), ``csrc/probe/fetch_planes.cu`` (K2 as it was on
-   float32 planes) and ``csrc/probe/correlate_bf16_mma.cu`` (K1's bf16
-   form at N=4096 and 8192 as it was before its Hopper redesign);
+   them, in parallel, the probe ``csrc/probe/chain.cu`` (chain latency and
+   an empty kernel);
 3. kernels: hold each kernel against its plain PyTorch version on the card
    at the receive chain's shapes (K2, K2b, K4, K5 and the payload CRC
    kernel bit for bit; the CRC kernel at the dense cells' and the mixed
@@ -24,10 +22,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel's bound (``bound_ms``: bytes over 3.35 TB/s or float32
    operations over 67 TFLOP/s, whichever is larger) and, beside every row,
    the launch floor (``launch_floor_ms``: an empty kernel timed the same
-   way). K2 is also timed as its callers ran it before it read the complex
-   bank (two plane splits of the bank, then the plane kernel), and in turns
-   with a grid-stride grid of one wave in place of its flat grid; K2b also
-   with the L2 warm, as the main path finds its inputs. The recursions
+   way). K2b is also timed with the L2 warm, as the main path finds its
+   inputs. The recursions
    K4 and K5 are also timed at B=32 (one warp) and given a chain floor: the
    cycles of their step bodies run by one warp on registers, over the SM
    clock that ``nvidia-smi`` reads;
@@ -36,8 +32,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    1536-byte max payload, 24 detection slots, V&V payload carrier, fused
    acquisition) as one batch (``group=0``); every packet fully inside the
    block must decode byte-exact, and every kernel must have been launched
-   by that run. Then the rate, the split by stage and the peak device
-   memory. The same step in channel groups of 16 (``bank_step``'s default)
+   by that run; its peak device memory is printed (the benchmark and
+   ``scripts/trace_rx_torch.py`` time the step). Every such bank step is
+   run twice more, captured into CUDA graphs and then replayed from them:
+   the replay is counted and gives the first step's rows. The same step
+   in channel groups of 16 (``bank_step``'s default)
    must give the same detections, flags and bytes. The bank step with fft
    acquisition runs next and must find the same detections; then the
    Costas payload carrier, where K4 runs the header and the payload pass,
@@ -137,20 +136,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    instructions in its SASS (``cuobjdump``; each of its three kernels must
    hold some). At N=4096 and 8192 on the bench bank as a Receiver with
    that ``acquisition_fft_size`` pads it (10,240 and 5,120 frames): the
-   streaming kernel and its earlier mma.sync design
-   (``csrc/probe/correlate_bf16_mma.cu``, built beside the probes in
-   phase 2) under the same gate, then timed in turns with each other and
-   the float32 K1, each with its plain version and bound. ``bank_step`` of
+   streaming kernel under the same gate, then timed in turns with the
+   float32 K1, each with its plain version and bound. ``bank_step`` of
    the bench bank at group 0 with each of the three backends, every packet
    byte-exact and the fused backend's detections, ``correlate_bf16``
-   launched on the ``fused_bf16`` path and neither K1 on the conv paths;
+   launched on the ``fused_bf16`` path and neither K1 on the conv paths
+   (each step also replayed from graphs, as in phase 4);
    the bench bank at ``acquisition_fft_size`` 4096 and 8192 with fused and
    fused_bf16, every packet byte-exact, the two with equal detections
    inside the capture (past its end, in the zero padding, each form
    detects its own rounding error and none decodes: counted; where the bf16
    form's such events outnumber a channel's free slots its overflow flag
-   is counted, not failed on), the stage
-   split and peak memory, and the one K1 form launched; ``bench`` at
+   is counted, not failed on), the
+   peak memory, and the one K1 form launched; ``bench`` at
    the JAX records' ``default_vv_bf16`` and ``ch64_g16_bf16``
    configurations (``decoded_packet_frac`` 1.0, the gates holding); the
    syncword program at 4 bins with all five backends.
@@ -440,27 +438,21 @@ def chain_floor(torch, probe, entry: str, *args) -> dict:
     return {"cycles": cyc, "sm_mhz": mhz, "ms": cyc / (mhz * 1e3)}
 
 
-def build_probe(name: str):
-    """Build and load the probe ``csrc/probe/<name>.cu``, with its entry
-    points' argument types."""
+def build_chain_probe():
+    """Build and load the probe ``csrc/probe/chain.cu`` (chain floors and
+    the empty kernel of the launch floor), with its entry points' argument
+    types."""
     import ctypes
 
     from gr4_packet_modem_tpu_torch.ops import _build
 
-    P, I, I64, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib = _build.build_single(_build.CSRC / "probe" / f"{name}.cu")
-    if name == "correlate_bf16_mma":
-        # ar, ai, br, bi, rep, w2c, small, tw, best_pow, best_bin, fpad, s, nb, log2n, stream
-        lib.pm_correlate_bf16_mma.argtypes = [P] * 10 + [I, I, I, I, P]
-    elif name == "chain":
-        # cycles, sink, steps, offset, stream
-        lib.pm_costas_chain.argtypes = [P, P, I, I, P]
-        # cycles, sink, llrs, chk_vars, var_edges, m, dmax, n, vdeg, iters, alpha, stream
-        lib.pm_ldpc_chain.argtypes = [P, P, P, P, P, I, I, I, I, I, F, P]
-        lib.pm_empty.argtypes = [P]
-    else:
-        # xr, xi, starts, outr, outi, total_len, region_len, d, stream
-        lib.pm_fetch_planes.argtypes = [P, P, P, P, P, I64, I, I, P]
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib = _build.build_single(_build.CSRC / "probe" / "chain.cu")
+    # cycles, sink, steps, offset, stream
+    lib.pm_costas_chain.argtypes = [P, P, I, I, P]
+    # cycles, sink, llrs, chk_vars, var_edges, m, dmax, n, vdeg, iters, alpha, stream
+    lib.pm_ldpc_chain.argtypes = [P, P, P, P, P, I, I, I, I, I, F, P]
+    lib.pm_empty.argtypes = [P]
     return lib
 
 
@@ -521,25 +513,24 @@ def crc_inputs(torch, dev, gen, d: int, max_len: int, pool, share: float):
     return (sym, scale, torch.from_numpy(ks).to(dev), torch.from_numpy(lens).to(dev), *tables), lens
 
 
-def kernel_checks(torch, card: str, probes: dict) -> dict:
+def kernel_checks(torch, card: str, chain) -> dict:
     """Each kernel against its plain version at the chain's shapes; the
     time of each, of its plain version and, where one PyTorch call computes
     the same function, of that call; each kernel's bound at its shape and
-    the launch floor. K2 also by the route it replaced and on another grid;
-    K4 and K5 also at B=32 and with their chain floors (``probes``: the
-    libraries of ``build_probe`` by name). Launches here are comparisons:
-    they do not count as the main path's."""
+    the launch floor. K4 and K5 also at B=32 and with their chain floors
+    (``chain``: the library of ``build_chain_probe``). Launches here are
+    comparisons: they do not count as the main path's."""
     # the yardstick convolution in full float32, as the kernel computes;
     # the flag is restored for the later phases
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        return _kernel_checks(torch, card, probes)
+        return _kernel_checks(torch, card, chain)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
 
 
-def _kernel_checks(torch, card: str, probes: dict) -> dict:
+def _kernel_checks(torch, card: str, chain) -> dict:
     import torch.nn.functional as F
 
     from gr4_packet_modem_tpu_torch.entry import BENCH_BLOCK, BENCH_CHANNELS, BENCH_CONFIG
@@ -550,7 +541,7 @@ def _kernel_checks(torch, card: str, probes: dict) -> dict:
     from gr4_packet_modem_tpu_torch.ops.costas_cuda import costas_track, costas_track_plain
     from gr4_packet_modem_tpu_torch.ops.crc import payload_crc, payload_crc_plain
     from gr4_packet_modem_tpu_torch.ops.fetch_cuda import (
-        fetch_plan, fetch_regions, fetch_regions_plain, fetch_rows, fetch_rows_plain,
+        fetch_regions, fetch_regions_plain, fetch_rows, fetch_rows_plain,
     )
     from gr4_packet_modem_tpu_torch.ops.ldpc_cuda import ldpc_totals
     from gr4_packet_modem_tpu_torch.ops.matched_cuda import matched_filter, matched_filter_plain
@@ -566,7 +557,7 @@ def _kernel_checks(torch, card: str, probes: dict) -> dict:
 
     # the launch floor: an empty kernel (one warp), timed as the kernels are
     def empty():
-        check(probes["chain"].pm_empty(stream()) == 0, "pm_empty: launch failed")
+        check(chain.pm_empty(stream()) == 0, "pm_empty: launch failed")
 
     launch_floor = timed(torch, empty)["ms"]
     log(f"  launch floor (an empty kernel, timed as the kernels are): {launch_floor:.4f} ms  [{card}]")
@@ -599,15 +590,9 @@ def _kernel_checks(torch, card: str, probes: dict) -> dict:
                 "sm_mhz": floor["sm_mhz"]}
 
     # K2 region fetch: the flattened 64-channel complex64 bank, starts of
-    # both parities and both edge starts. Beside the kernel: the route it
-    # replaced (the bank split into I and Q planes, then the plane kernel
-    # of csrc/probe/fetch_planes.cu), that plane kernel alone on planes
-    # split beforehand, and the kernel on a grid-stride grid of one wave
-    # (8 blocks of 256 an SM) in place of the plan's flat grid
+    # both parities and both edge starts
     t = 64 * 553_396
     x = torch.randn(t, generator=gen, device=dev, dtype=torch.complex64)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    lib2 = _build.library()
     for r in (1569, 808, 24_680):
         starts = torch.randint(0, t - r + 1, (d,), generator=gen, device=dev)
         starts[:3] = torch.tensor([0, 1, t - r])
@@ -615,48 +600,12 @@ def _kernel_checks(torch, card: str, probes: dict) -> dict:
         torch.cuda.synchronize()
         pr, pi = fetch_regions_plain(x, starts, r)
         check(torch.equal(kr, pr) and torch.equal(ki, pi), f"fetch R={r}: not bit-exact")
-        outr, outi = torch.empty_like(pr), torch.empty_like(pi)
-        planes = x.real.contiguous(), x.imag.contiguous()
-
-        def plane_kernel(xr, xi):
-            status = probes["fetch_planes"].pm_fetch_planes(
-                xr.data_ptr(), xi.data_ptr(), starts.data_ptr(), outr.data_ptr(),
-                outi.data_ptr(), t, r, d, stream())
-            check(status == 0, f"pm_fetch_planes: CUDA error {status}")
-
-        def parent_route():
-            plane_kernel(x.real.contiguous(), x.imag.contiguous())
-
-        def one_wave():
-            blocks = min(fetch_plan(r, d)["blocks"], sms * 2048 // 256)
-            status = lib2.pm_fetch_regions(x.data_ptr(), starts.data_ptr(), outr.data_ptr(),
-                                           outi.data_ptr(), t, r, d, blocks, stream())
-            check(status == 0, f"pm_fetch_regions: CUDA error {status}")
-
-        for fn in (parent_route, one_wave):
-            outr.zero_()
-            outi.zero_()
-            fn()
-            torch.cuda.synchronize()
-            check(torch.equal(outr, pr) and torch.equal(outi, pi), f"fetch R={r}: {fn.__name__} differs")
         del kr, ki, pr, pi
-        k1 = timed(torch, lambda: fetch_regions(x, starts, r))
-        w1 = timed(torch, one_wave)["ms"]
-        w2 = timed(torch, one_wave)["ms"]
-        k2 = timed(torch, lambda: fetch_regions(x, starts, r))
-        k = mean_timed(k1, k2)
+        k = timed(torch, lambda: fetch_regions(x, starts, r))
         pms = timed(torch, lambda: fetch_regions_plain(x, starts, r))["ms"]
         lib = timed(torch, lambda: torch.view_as_real(x).unfold(0, r, 1)[starts])["ms"]
-        extra = {"parent_route_ms": timed(torch, parent_route)["ms"],
-                 "plane_kernel_ms": timed(torch, lambda: plane_kernel(*planes))["ms"],
-                 "one_wave_ms": (w1 + w2) / 2}
-        log(f"  fetch R={r}: in turns flat grid {k1['ms']:.4f}, one-wave grid {w1:.4f}, "
-            f"one-wave grid {w2:.4f}, flat grid {k2['ms']:.4f} ms; the replaced route (2 splits + "
-            f"plane kernel) {extra['parent_route_ms']:.4f} ms, its plane kernel alone "
-            f"{extra['plane_kernel_ms']:.4f} ms  [{card}]")
         record("fetch", f"D={d} R={r}", 0.0, k, pms, lib, 2 * (2 * d * r * 4) + d * 8, 0,
-               r == 24_680, extra)
-        del planes, outr, outi
+               r == 24_680)
     del x
 
     # K2b row fetch: a float32 plane of the bank's size (the bank's
@@ -789,7 +738,7 @@ def _kernel_checks(torch, card: str, probes: dict) -> dict:
         shape = f"B={d} S={s} offset={offset}"
         extra = recursion("costas", shape, k,
                           lambda: costas_track(sym[:32], ph0[:32], fr0[:32], offset=offset),
-                          chain_floor(torch, probes["chain"], "pm_costas_chain", s, offset))
+                          chain_floor(torch, chain, "pm_costas_chain", s, offset))
         # a symbol: derotation 6, error 2, loop update 5, wraps 2, and the
         # accurate cosf and sinf counted as 20 operations each
         record("costas", shape, err, k, pms, None,
@@ -827,7 +776,7 @@ def _kernel_checks(torch, card: str, probes: dict) -> dict:
     iters, alpha = 25, float(np.float32(0.75))
     shape = f"B={d} iters={iters}"
     (m, dmax), (n, vdeg) = cv.shape, ve.shape
-    floor = chain_floor(torch, probes["chain"], "pm_ldpc_chain", llr.data_ptr(), cv.data_ptr(),
+    floor = chain_floor(torch, chain, "pm_ldpc_chain", llr.data_ptr(), cv.data_ptr(),
                         ve.data_ptr(), m, dmax, n, vdeg, iters, alpha)
     extra = recursion("ldpc", shape, k, lambda: ldpc_totals(llr[:32], cv, ve), floor)
     # an edge an iteration: the variable sum's add; the check's subtract,
@@ -872,12 +821,12 @@ def bank_run(torch, card: str, rx, x, expected, label: str, group: int = 0, over
     before it and read just after; the decode gate (no channel's
     detections overflowing its slots, unless ``overflow_ok``: then the
     overflowing channels are counted, and the caller holds the detections
-    that matter); then the rate, the peak device memory and, for one batch
-    (``group=0``), the split by stage. Returns the numbers and the step's
-    ``(det, res, keep)``."""
+    that matter); its peak device memory; then two more steps, the last
+    replayed from CUDA graphs and held to the first. Returns the numbers
+    and the first step's ``(det, res, keep)``."""
     from gr4_packet_modem_tpu_torch.ops import _build
 
-    channels, block = x.shape[0], x.shape[1] - rx.front_pad - rx.pad_tail()
+    channels = x.shape[0]
     _build.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     det, hdr, res, keep = rx.bank_step(x, group)
@@ -904,37 +853,18 @@ def bank_run(torch, card: str, rx, x, expected, label: str, group: int = 0, over
     log(f"  {label}: decoded {int(acc.sum())}/{channels * len(expected)} packets byte-exact, "
         f"esn0 {esn0[acc].min():.1f}..{esn0[acc].max():.1f} dB, "
         f"peak device memory {peak / 2**30:.2f} GiB  [{card}]")
-
-    # rate and split by stage; every stage's outputs are consumed
-    def acquire():
-        d = rx.acquirer.acquire(x)
-        return d.esn0_db.sum().item() + d.index.sum().item()
-
-    def headers():
-        d = rx.acquirer.acquire(x)
-        df, h = rx.decode_bank(x, d, upto="headers")
-        return d.esn0_db.sum().item() + h.packet_length.sum().item() + h.phase.sum().item()
-
-    def filt():
-        d = rx.acquirer.acquire(x)
-        df, h, kp = rx.decode_bank(x, d, upto="filter")
-        return d.esn0_db.sum().item() + h.phase.sum().item() + kp.sum().item()
-
-    def full():
-        df, h, r, kp = rx.bank_step(x, group)
-        return df.esn0_db.sum().item() + r.accepted.sum().item() + r.crc_ok.sum().item()
-
-    stages = (("acquire", acquire), ("+headers", headers), ("+filter", filt), ("+payload", full))
-    stages = {name: median_ms(torch, fn) for name, fn in stages[0 if group == 0 else 3:]}
-    rate = channels * block / (stages["+payload"] / 1e3)
-    log(f"  {label}: stage times (cumulative, median of 5): "
-        + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()) + f"  [{card}]")
-    log(f"  {label}: rate {rate:.4e} samples/s ({channels} ch x {block} samples per step), "
-        f"group {group}  [{card}]")
     if overflowed:
         log(f"  {label}: {overflowed} channel(s) with more detection events than slots")
-    return {"launches": launches, "stages_ms": stages, "rate_sps": rate, "group": group,
-            "peak_bytes": peak, "packets": int(acc.sum()), "overflowed": overflowed}, (det, res, keep)
+
+    # the same step again, captured into CUDA graphs, then replayed from
+    # them: the replay counted, and its rows the eager step's
+    rx.bank_step(x, group)
+    replayed = rx.graph_counts()["replayed"]
+    rdet, _, rres, rkeep = rx.bank_step(x, group)
+    check(rx.graph_counts()["replayed"] == replayed + 1, f"{label}: the third step was not replayed")
+    same_rows(torch, (rdet, rres, rkeep), (det, res, keep), f"{label} replayed against eager")
+    return {"launches": launches, "group": group, "peak_bytes": peak, "packets": int(acc.sum()),
+            "overflowed": overflowed}, (det, res, keep)
 
 
 def same_rows(torch, a, b, label: str) -> None:
@@ -999,9 +929,6 @@ def slice_run(torch, card: str) -> dict:
           f"costas carrier: K4 launched {costas['launches']['costas']} times in one step, not 2")
     for k in ALL_KERNELS:
         check(costas["launches"][k] > 0, f"kernel {k} was not launched by the Costas carrier's step")
-    log(f"  costas carrier against V&V: +payload {costas['stages_ms']['+payload']:.2f} against "
-        f"{fused['stages_ms']['+payload']:.2f} ms, rate {costas['rate_sps']:.4e} against "
-        f"{fused['rate_sps']:.4e} samples/s  [{card}]")
     costas16, rows16 = bank_run(torch, card, rx_costas, x, expected, "costas group 16", group=16)
     check(costas16["launches"]["costas"] == 8,
           f"costas group 16: K4 launched {costas16['launches']['costas']} times, not 2 a group")
@@ -1009,8 +936,7 @@ def slice_run(torch, card: str) -> dict:
         check(costas16["launches"][k] > 0, f"kernel {k} was not launched by the Costas group-16 step")
     same_rows(torch, rows16, costas_rows, "costas group 16 against group 0")
     for name, g16, g0 in (("V&V", fused16, fused), ("costas", costas16, costas)):
-        log(f"  {name} group 16 against group 0: {g16['stages_ms']['+payload']:.2f} against "
-            f"{g0['stages_ms']['+payload']:.2f} ms, peak device memory {g16['peak_bytes'] / 2**30:.2f} "
+        log(f"  {name} group 16 against group 0: peak device memory {g16['peak_bytes'] / 2**30:.2f} "
             f"against {g0['peak_bytes'] / 2**30:.2f} GiB  [{card}]")
     del rx_costas, costas_rows, rows16
 
@@ -2105,7 +2031,7 @@ def envelope_kernel_rows(torch, card: str, rx, xp) -> list:
     return rows
 
 
-def envelope_phase(torch, card: str, dev, probes: dict) -> dict:
+def envelope_phase(torch, card: str, dev, chain) -> dict:
     """The u16 payload envelope through ``Transmitter.modulate_bursts``,
     ``rotate``, numpy noise and ``Receiver.receive`` on the card, both
     carriers; K4 at the full payload length; the 65,535-byte TX against
@@ -2146,7 +2072,7 @@ def envelope_phase(torch, card: str, dev, probes: dict) -> dict:
             xp = rx.pad(xd)
             det = rx.acquirer.acquire(xp)
             hdr, _ = rx.decode_headers(xp, det)
-            keep = rx.filter_detections(det, hdr)
+            _, keep = rx.filter_detections(det, hdr)
             _, acq_l = path_launches(torch, "acquire", lambda: rx.acquirer.acquire(xp), show=False)
             _, pay_l = path_launches(torch, "payloads", lambda: rx.decode_payloads(xp, det, hdr, keep),
                                      show=False)
@@ -2215,7 +2141,7 @@ def envelope_phase(torch, card: str, dev, probes: dict) -> dict:
     head_sym = sym[:, :head].contiguous()
     head_ms, _ = loop_ms(torch, lambda: costas_track(head_sym, ph0, fr0, offset=offset))
     plain_head_ms = event_ms(torch, lambda: costas_track_plain(head_sym, ph0, fr0, offset=offset), reps=1)
-    floor = chain_floor(torch, probes["chain"], "pm_costas_chain", s, offset)
+    floor = chain_floor(torch, chain, "pm_costas_chain", s, offset)
     bms, by = bound(2 * b * s * 8 + 4 * b * 4, b * s * (15 + 40))
     out["costas_full"] = {"shape": f"B={b} S={s} offset={offset}", "ms": k4, "host_ms": k4_host,
                           "chain_floor_ms": floor["ms"], "chain_cycles": floor["cycles"],
@@ -2243,7 +2169,7 @@ def envelope_phase(torch, card: str, dev, probes: dict) -> dict:
     k4, k4_host = loop_ms(torch, lambda: costas_track(sym, ph0, fr0, offset=offset), reps=5)
     head_ms, _ = loop_ms(torch, lambda: costas_track(head_sym, ph0, fr0, offset=offset))
     plain_head_ms = event_ms(torch, lambda: costas_track_plain(head_sym, ph0, fr0, offset=offset), reps=1)
-    floor = chain_floor(torch, probes["chain"], "pm_costas_chain", s16, offset)
+    floor = chain_floor(torch, chain, "pm_costas_chain", s16, offset)
     bms, by = bound(2 * b16 * s16 * 8 + 4 * b16 * 4, b16 * s16 * (15 + 40))
     out["costas_16k"] = {"shape": f"B={b16} S={s16} offset={offset}", "ms": k4, "host_ms": k4_host,
                          "chain_floor_ms": floor["ms"], "chain_cycles": floor["cycles"],
@@ -2309,7 +2235,7 @@ def timing_sweep(torch, card: str, dev) -> dict:
         xp = rx.pad(torch.from_numpy(x).to(dev))
         det = rx.acquirer.acquire(xp)
         hdr, corrected = rx.decode_headers(xp, det)
-        keep = rx.filter_detections(det, hdr)
+        _, keep = rx.filter_detections(det, hdr)
         res = rx.decode_payloads(xp, det, hdr, keep)
         te = float(det.time_est[0])
         sync = corrected[0, : C.SYNCWORD_LEN].cpu().numpy()
@@ -2368,66 +2294,13 @@ def bf16_work(fpad: int, s: int, n: int, nb: int) -> tuple[float, float, float]:
     return nbytes, f32, tc
 
 
-def mma_fragment_table(n: int) -> np.ndarray:
-    """W2c (``acquire_cuda.dft_tables(n)["w2c"]``) rounded to bf16 as
-    mma.m16n8k16's B fragments, the table of K1's bf16 form before its
-    Hopper redesign (``csrc/probe/correlate_bf16_mma.cu``): int32 ``[N2/8,
-    N2/16, 32, 4]``, for n-tile ``nt``, k-step ``ks`` and lane ``4 g + q``
-    the words (re b0, re b1, im b0, im b1), where b0 holds rows ``16 ks + 2
-    q``, ``+ 1`` and b1 rows ``16 ks + 2 q + 8``, ``+ 9`` of column ``8 nt +
-    g`` (the lower row in the low half)."""
-    from gr4_packet_modem_tpu_torch.ops.acquire_cuda import _bf16_bits, dft_tables
-
-    t = dft_tables(n)["w2c"]
-    k, m = t.shape
-    lane = np.arange(32)
-    col = 8 * np.arange(m // 8)[:, None, None] + (lane >> 2)
-    row = 16 * np.arange(k // 16)[None, :, None] + 2 * (lane & 3)
-    words = []
-    for part in (t.real, t.imag):
-        bits = _bf16_bits(part).astype(np.uint32)
-        for r in (row, row + 8):
-            words.append(bits[r, col] | (bits[r + 1, col] << 16))
-    return np.stack(words, axis=-1).view(np.int32)
-
-
-def mma_bf16_call(torch, probe, args):
-    """A caller of the earlier bf16 kernel (``csrc/probe/correlate_bf16_
-    mma.cu``) on the frame views and replica planes ``args`` (as
-    ``fused_best_power`` takes them), its tables built once: returns a
-    function of no arguments giving ``(best_pow, best_bin)``."""
-    from gr4_packet_modem_tpu_torch.ops.acquire_cuda import bf16_tables, fragment_index
-
-    ar, ai, br, bi, rfr, rfi, n = args
-    dev = ar.device
-    idx = torch.from_numpy(fragment_index(n)).to(dev)
-    rep = torch.stack([rfr[:, idx], rfi[:, idx]], dim=2).contiguous()
-    w2c = torch.from_numpy(mma_fragment_table(n)).to(dev)
-    t = bf16_tables(n)
-    small, tw = (torch.from_numpy(t[k]).to(dev) for k in ("small", "tw"))
-    fpad, s = ar.shape
-    nb = rfr.shape[0]
-    out_pow = ar.new_empty(fpad, n)
-    out_bin = torch.empty(fpad, n, dtype=torch.int32, device=dev)
-
-    def call():
-        status = probe.pm_correlate_bf16_mma(
-            ar.data_ptr(), ai.data_ptr(), br.data_ptr(), bi.data_ptr(), rep.data_ptr(), w2c.data_ptr(),
-            small.data_ptr(), tw.data_ptr(), out_pow.data_ptr(), out_bin.data_ptr(), fpad, s, nb,
-            n.bit_length() - 1, torch.cuda.current_stream().cuda_stream)
-        check(status == 0, f"pm_correlate_bf16_mma: CUDA error {status}")
-        return out_pow, out_bin
-
-    return call
-
-
-def bf16_gate(torch, card: str, label: str, args, outputs: dict) -> dict:
-    """Outputs ``(best_pow, best_bin)`` of K1's bf16 form (by design name)
-    on the frame views and replica planes ``args`` against its plain
-    version: every best power within 2e-2 of itself plus 1e-4 of the
-    largest, every best bin equal where the plain version's best bin beats
-    its second best by more than 5 % and by more than 2e-4 of the largest.
-    Returns each design's largest deviations."""
+def bf16_gate(torch, card: str, label: str, args, out) -> dict:
+    """The output ``(best_pow, best_bin)`` of K1's bf16 form on the frame
+    views and replica planes ``args`` against its plain version: every
+    best power within 2e-2 of itself plus 1e-4 of the largest, every best
+    bin equal where the plain version's best bin beats its second best by
+    more than 5 % and by more than 2e-4 of the largest. Returns the largest
+    deviations."""
     from gr4_packet_modem_tpu_torch.ops.acquire_cuda import bf16_bin_powers
 
     # the plain version's bin powers: its best (and bin) and second best
@@ -2442,26 +2315,24 @@ def bf16_gate(torch, card: str, label: str, args, outputs: dict) -> dict:
     # the most two bins' errors can close
     ahead = top2[0] > 1.05 * top2[-1]
     clear = ahead & (top2[0] - top2[-1] > 2e-4 * scale)
-    res = {}
-    for design, (kp, kb) in outputs.items():
-        err = (kp - pp).abs()
-        worst = (err / lim).max().item()
-        rel = (err / pp.clamp(min=1e-30)).max().item()
-        same = kb == pb
-        flips = ahead & ~same
-        flip_top = (top2[0][flips].max().item() / scale) if bool(flips.any()) else 0.0
-        log(f"  correlate_bf16 {label} ({design}): FPAD={pp.shape[0]} S={args[0].shape[1]} "
-            f"nb={args[4].shape[0]}: max |d best_pow| {err.max().item():.3e} (largest {scale:.3e}), max "
-            f"relative {rel:.3e}, the largest deviation {100 * worst:.1f} % of its limit; best_bin equal on "
-            f"{same.float().mean().item():.6f} of all samples and on all {int(clear.sum())} samples with a "
-            f"clear best bin ({100 * clear.float().mean().item():.1f} %); of the {int(ahead.sum())} whose best "
-            f"bin leads by 5 %, {int(flips.sum())} differ, each at most {flip_top:.3e} of the largest  [{card}]")
-        check(worst <= 1.0, f"correlate_bf16 {label} ({design}): best_pow beyond 2e-2 x itself + 1e-4 x max")
-        check(bool(same[clear].all()), f"correlate_bf16 {label} ({design}): best_bin differs where the best bin is clear")
-        res[design] = {"max_abs_err": err.max().item(), "max_rel_err": rel, "worst_of_limit": worst,
-                       "bin_equal_frac": same.float().mean().item(), "flips_5pct": int(flips.sum()),
-                       "flip_top_of_max": flip_top}
-    return res
+    kp, kb = out
+    err = (kp - pp).abs()
+    worst = (err / lim).max().item()
+    rel = (err / pp.clamp(min=1e-30)).max().item()
+    same = kb == pb
+    flips = ahead & ~same
+    flip_top = (top2[0][flips].max().item() / scale) if bool(flips.any()) else 0.0
+    log(f"  correlate_bf16 {label}: FPAD={pp.shape[0]} S={args[0].shape[1]} "
+        f"nb={args[4].shape[0]}: max |d best_pow| {err.max().item():.3e} (largest {scale:.3e}), max "
+        f"relative {rel:.3e}, the largest deviation {100 * worst:.1f} % of its limit; best_bin equal on "
+        f"{same.float().mean().item():.6f} of all samples and on all {int(clear.sum())} samples with a "
+        f"clear best bin ({100 * clear.float().mean().item():.1f} %); of the {int(ahead.sum())} whose best "
+        f"bin leads by 5 %, {int(flips.sum())} differ, each at most {flip_top:.3e} of the largest  [{card}]")
+    check(worst <= 1.0, f"correlate_bf16 {label}: best_pow beyond 2e-2 x itself + 1e-4 x max")
+    check(bool(same[clear].all()), f"correlate_bf16 {label}: best_bin differs where the best bin is clear")
+    return {"max_abs_err": err.max().item(), "max_rel_err": rel, "worst_of_limit": worst,
+            "bin_equal_frac": same.float().mean().item(), "flips_5pct": int(flips.sum()),
+            "flip_top_of_max": flip_top}
 
 
 def bf16_kernel_check(torch, card: str, label: str, a, x) -> dict:
@@ -2475,18 +2346,17 @@ def bf16_kernel_check(torch, card: str, label: str, a, x) -> dict:
     args = (ar, ai, br, bi, a.replica_fft_r, a.replica_fft_i, n)
     out = fused_best_power(*args, table=a.replica_table, bf16=True)
     torch.cuda.synchronize()
-    res = bf16_gate(torch, card, label, args, {"wgmma": out})["wgmma"]
+    res = bf16_gate(torch, card, label, args, out)
     return {**res, "args": args}
 
 
-def bf16_size_report(torch, card: str, a, x, probe, launch_floor: float) -> dict:
+def bf16_size_report(torch, card: str, a, x, launch_floor: float) -> dict:
     """K1's bf16 form at the acquirer ``a``'s size (4096 or 8192) on its
-    frames of the padded bank ``x``: the streaming kernel and the earlier
-    mma.sync design (``csrc/probe/correlate_bf16_mma.cu``) against the
-    plain version (``bf16_gate``); then timed in turns with each other and
-    the float32 K1 (streaming, mma.sync, K1, K1, mma.sync, streaming), each
-    with its host time a call, its plain version's time and its bound (the
-    bf16 form's three terms, K1's split-radix count)."""
+    frames of the padded bank ``x``: the streaming kernel against the
+    plain version (``bf16_gate``); then timed in turns with the float32
+    K1 (streaming, K1, K1, streaming), each with its host time a call, its
+    plain version's time and its bound (the bf16 form's three terms, K1's
+    split-radix count)."""
     from gr4_packet_modem_tpu_torch.ops.acquire_cuda import (
         fused_best_power, fused_best_power_bf16_plain, fused_best_power_plain, replica_table,
     )
@@ -2503,10 +2373,9 @@ def bf16_size_report(torch, card: str, a, x, probe, launch_floor: float) -> dict
     def f32():
         return fused_best_power(*args, table=f32_table)
 
-    old = mma_bf16_call(torch, probe, args)
-    gate = bf16_gate(torch, card, f"N={n}", args, {"wgmma": new(), "mma.sync": old()})
-    turns = [timed(torch, fn) for fn in (new, old, f32, f32, old, new)]
-    k, o, f = mean_timed(turns[0], turns[5]), mean_timed(turns[1], turns[4]), mean_timed(turns[2], turns[3])
+    gate = bf16_gate(torch, card, f"N={n}", args, new())
+    turns = [timed(torch, fn) for fn in (new, f32, f32, new)]
+    k, f = mean_timed(turns[0], turns[3]), mean_timed(turns[1], turns[2])
     plain = timed(torch, lambda: fused_best_power_bf16_plain(*args), reps=3)["ms"]
     f32_plain = timed(torch, lambda: fused_best_power_plain(*args), reps=3)["ms"]
     work = bf16_work(fpad, s, n, nb)
@@ -2514,21 +2383,19 @@ def bf16_size_report(torch, card: str, a, x, probe, launch_floor: float) -> dict
     bms, by = bound(*work)
     f32_bms, f32_by = bound(*k1_work(fpad, s, n, nb))
     shape = f"C={x.shape[0]} FPAD={fpad} S={s} N={n} nb={nb}"
-    log(f"  correlate_bf16 {shape} in turns (wgmma, mma.sync, K1, K1, mma.sync, wgmma): "
+    log(f"  correlate_bf16 {shape} in turns (wgmma, K1, K1, wgmma): "
         + ", ".join(f"{t['ms']:.4f}" for t in turns) + " ms (" + ", ".join(t["timer"] for t in turns)
         + "); CUDA events around 10 calls: " + ", ".join(f"{t['loop_ms']:.4f}" for t in turns)
         + f" ms; wgmma {k['ms']:.4f} ms (host {k['host_ms']:.4f} "
-        f"ms a call), {o['ms'] / k['ms']:.3f} x faster than mma.sync ({o['ms']:.4f}), {k['ms'] / f['ms']:.3f} x "
-        f"K1 ({f['ms']:.4f}, host {f['host_ms']:.4f}); plain {plain:.4f} ms; bound {bms:.4f} ms ({by}: bytes "
-        f"{terms['bytes']:.4f}, float32 {terms['f32']:.4f}, bf16 tensor cores {terms['bf16_tc']:.4f}; "
-        f"{100 * bms / k['ms']:.1f} % of it; mma.sync {100 * bms / o['ms']:.1f} %); K1's bound "
-        f"{f32_bms:.4f} ms ({f32_by}, {100 * f32_bms / f['ms']:.1f} % of it), its plain {f32_plain:.4f} ms; "
-        f"launch floor {launch_floor:.4f} ms  [{card}]")
+        f"ms a call), {k['ms'] / f['ms']:.3f} x K1 ({f['ms']:.4f}, host {f['host_ms']:.4f}); plain "
+        f"{plain:.4f} ms; bound {bms:.4f} ms ({by}: bytes {terms['bytes']:.4f}, float32 "
+        f"{terms['f32']:.4f}, bf16 tensor cores {terms['bf16_tc']:.4f}; {100 * bms / k['ms']:.1f} % of "
+        f"it); K1's bound {f32_bms:.4f} ms ({f32_by}, {100 * f32_bms / f['ms']:.1f} % of it), its plain "
+        f"{f32_plain:.4f} ms; launch floor {launch_floor:.4f} ms  [{card}]")
     return {"shape": shape, "gate": gate, "turns_ms": [t["ms"] for t in turns],
             "turns_loop_ms": [t["loop_ms"] for t in turns],
             "wgmma": {**k, "bound_ms": bms, "bound_by": by, "bound_terms_ms": terms, "plain_ms": plain,
-                      "max_abs_err": gate["wgmma"]["max_abs_err"]},
-            "mma_sync": {**o, "max_abs_err": gate["mma.sync"]["max_abs_err"]},
+                      "max_abs_err": gate["max_abs_err"]},
             "f32": {**f, "bound_ms": f32_bms, "bound_by": f32_by, "plain_ms": f32_plain},
             "launch_floor_ms": launch_floor}
 
@@ -2587,12 +2454,11 @@ def bf16_kernel_report(torch, card: str) -> dict:
     return out
 
 
-def backends_phase(torch, card: str, dev, launch_floor: float, probes: dict) -> dict:
+def backends_phase(torch, card: str, dev, launch_floor: float) -> dict:
     """The acquisition backends the port once refused: K1's bf16 form
     against its plain version at the bench shape, timed in turns with the
     float32 K1, and at N=4096 and 8192 on the bench bank as a Receiver with
-    that ``acquisition_fft_size`` pads it, beside its earlier mma.sync
-    design (``bf16_size_report``); ``bank_step`` of the bench bank with
+    that ``acquisition_fft_size`` pads it (``bf16_size_report``); ``bank_step`` of the bench bank with
     fused_bf16, conv and conv_bf16 (group 0), each held to the fused
     backend's detections and decoding every packet, and at N=4096 and 8192
     with fused and fused_bf16, the two alike; ``bench`` at the JAX
@@ -2652,12 +2518,12 @@ def backends_phase(torch, card: str, dev, launch_floor: float, probes: dict) -> 
                              "shape": f"C={BENCH_CHANNELS} FPAD={fpad} S={s} N={n} nb={nb}"}
     del x, args
     # (a, b) at N=4096 and 8192: the bench bank as a Receiver with that
-    # acquisition_fft_size pads it, beside the earlier mma.sync design
+    # acquisition_fft_size pads it
     for size in STREAM_FFT_SIZES:
         rxn = Receiver(dataclasses.replace(BENCH_CONFIG, acquisition_fft_size=size,
                                            acquisition_backend="fused_bf16"), dev)
         x = padded(samples, 0.05, rxn)
-        r = bf16_size_report(torch, card, rxn.acquirer, x, probes["correlate_bf16_mma"], launch_floor)
+        r = bf16_size_report(torch, card, rxn.acquirer, x, launch_floor)
         out[f"correlate_bf16_{size}"] = r
         res = out["correlate_bf16"]
         res["max_abs_err"] = max(res["max_abs_err"], r["wgmma"]["max_abs_err"])
@@ -2805,19 +2671,19 @@ def main() -> int:
     from gr4_packet_modem_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
-        jobs = {name: pool.submit(build_probe, name) for name in ("chain", "fetch_planes", "correlate_bf16_mma")}
+    with ThreadPoolExecutor(1) as pool:
+        job = pool.submit(build_chain_probe)
         path = _build.build()
-        probes = {name: job.result() for name, job in jobs.items()}
+        chain = job.result()
     _build.library()
-    log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(path, ROOT)} and the probes")
+    log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(path, ROOT)} and the chain probe")
     for line in path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             log(f"  {line.strip()}")
 
     # phase 3: kernels vs plain versions
     log("kernels:")
-    kres = kernel_checks(torch, card, probes)
+    kres = kernel_checks(torch, card, chain)
 
     # phase 4: the slice
     log("slice:")
@@ -2857,14 +2723,14 @@ def main() -> int:
     # phase 14: the u16 payload envelope and the timing boundary
     log("envelope:")
     t0 = time.perf_counter()
-    envres = envelope_phase(torch, card, dev, probes)
+    envres = envelope_phase(torch, card, dev, chain)
     envres["seconds"] = time.perf_counter() - t0
     log(f"  envelope: {envres['seconds']:.1f} s")
 
     # phase 15: the acquisition backends fused_bf16, conv and conv_bf16
     log("backends:")
     t0 = time.perf_counter()
-    backres = backends_phase(torch, card, dev, kres["launch_floor_ms"], probes)
+    backres = backends_phase(torch, card, dev, kres["launch_floor_ms"])
     backres["seconds"] = time.perf_counter() - t0
     log(f"  backends: {backres['seconds']:.1f} s")
     import gr4_packet_modem_tpu_torch.io.zmq_pub  # noqa: F401  (the taps' publisher, no pyzmq here)

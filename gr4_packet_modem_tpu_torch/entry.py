@@ -53,10 +53,7 @@ def entry(device: str | torch.device):
     rx = Receiver(RxConfig(max_payload_len=256, max_detections=16, freq_bins=4), dev)
 
     def rx_step(samples: torch.Tensor):
-        det = rx.acquirer.acquire(samples)
-        hdr, _ = rx.decode_headers(samples, det)
-        keep = rx.filter_detections(det, hdr)
-        res = rx.decode_payloads(samples, det, hdr, keep)
+        res = rx.decode(samples, rx.acquirer.acquire(samples)).res
         return res.accepted, res.lengths, res.data
 
     t = 1 << 16

@@ -15,6 +15,12 @@ The receive chain runs as feed-forward passes over a sample buffer:
    slice, pack and CRC-32 check (``ops/crc.py::payload_crc``: one kernel
    on the card, each row read only up to its own length).
 
+Stages 2-4 are one chain, :meth:`Receiver.decode`, for every caller: the
+one-shot ``receive``, the bank step, ``entry()`` and the streaming
+drivers (which seed the suppression scan with the state carried from the
+previous block). Only ``parallel/bank.py`` runs its own scan, because the
+time shards exchange their extents between the header pass and it.
+
 A bank ``[C, N]`` runs acquisition batched over channels and both decode
 passes as one flat batch of all channels' detections; suppression stays
 per channel. ``bank_step(x, group)`` runs the channels in groups of
@@ -38,6 +44,7 @@ from __future__ import annotations
 
 from contextlib import nullcontext
 from dataclasses import dataclass, fields
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -60,7 +67,7 @@ from ..ops.scramble import descramble_soft, keystream_np
 from .tables import receiver_tables, tables_from_numpy
 
 __all__ = [
-    "RxConfig", "Receiver", "HeaderResult", "PayloadResult",
+    "RxConfig", "Receiver", "HeaderResult", "PayloadResult", "Decoded",
     "packet_extent_samples", "suppress_overlapping", "flatten_detections",
     "flatten_grouped_results",
 ]
@@ -182,6 +189,17 @@ class PayloadResult:
     accepted: torch.Tensor  # bool [D] kept & header & crc & user-data type
     symbols: torch.Tensor   # float32 [D, S, 2] corrected payload symbols as
     #                         I/Q ([D, 0, 2] unless keep_payload_symbols)
+
+
+class Decoded(NamedTuple):
+    """The receive chain's results (:meth:`Receiver.decode`), rows flat."""
+
+    det: Detections               # [R] rows; overflow: any channel's
+    hdr: HeaderResult             # [R]
+    header_symbols: torch.Tensor  # [R, 192] corrected syncword + header
+    res: PayloadResult            # [R]
+    keep: torch.Tensor            # bool [R] kept by the suppression scan
+    busy_end: torch.Tensor        # [C] (a bank) or [] busy-until after the scan
 
 
 def flatten_grouped_results(parts: list[tuple]) -> tuple:
@@ -431,46 +449,58 @@ class Receiver(nn.Module):
     # --------------------------------------------------- detection filtering
 
     @stage
-    def filter_detections(self, det: Detections, hdr: HeaderResult) -> torch.Tensor:
+    def filter_detections(
+        self, det: Detections, hdr: HeaderResult, busy0: torch.Tensor | None = None
+    ) -> tuple[torch.Tensor, torch.Tensor]:
         """Suppress detections that start inside an earlier kept packet's
-        extent. ``det``/``hdr`` rows are ``[D]`` or ``[C, D]``."""
+        extent, the scan seeded with ``busy0`` (busy-until per channel,
+        carried from block to block by a streaming caller; None seeds -1,
+        made inside the stage, so that a graphed step's key never holds a
+        new tensor). ``det``/``hdr`` rows are ``[D]`` or ``[C, D]``.
+        Returns ``(busy_end, keep)`` as :func:`suppress_overlapping`."""
         with span("rx.suppress", det.index.device):
             extent = packet_extent_samples(
                 hdr.packet_length.reshape(det.index.shape),
                 hdr.header_ok.reshape(det.index.shape),
                 self.config.samples_per_symbol,
             )
-            busy0 = torch.full(det.index.shape[:-1], -1, device=det.index.device)
-            _, keep = suppress_overlapping(det.index, det.valid, extent, busy0)
-        return keep
+            if busy0 is None:
+                busy0 = torch.full(det.index.shape[:-1], -1, device=det.index.device)
+            return suppress_overlapping(det.index, det.valid, extent, busy0)
 
-    # ------------------------------------------------------------ bank decode
+    # ------------------------------------------------------------ the chain
 
-    def decode_bank(self, x: torch.Tensor, det: Detections, upto: str = "full"):
-        """Decode all channels' detections as one flat batch.
-
-        ``x``: ``[C, N]`` complex64; ``det``: per-channel detections
-        ``[C, D]``. Returns ``(det_flat, hdr, res, keep)`` with rows
-        flattened channel-major (row ``c*D + i``). ``upto`` stops early for
-        stage timing: "headers" -> ``(det_flat, hdr)``, "filter" ->
-        ``(det_flat, hdr, keep)``."""
+    def decode(
+        self, x: torch.Tensor, det: Detections, busy0: torch.Tensor | None = None
+    ) -> Decoded:
+        """The receive chain after acquisition: ``decode_headers``,
+        ``filter_detections`` (seeded with ``busy0``) and
+        ``decode_payloads``. ``x`` is a capture ``[T]`` with detections
+        ``[D]``, or a bank ``[C, T]`` with ``[C, D]``, whose channels'
+        rows run as one flat batch, channel-major (row ``c*D + i``)."""
         # the stages' inputs at fixed addresses (as a captured step's stages
         # read them): views of ``det``, the channel ids built once, and
         # ``overflow`` merged only after the stages
-        detf, chan = flatten_detections(det, self._channel_ids(*det.index.shape, det.index.device))
-        hdr, _ = self.decode_headers(x, detf, chan)
-        out = (detf, hdr)
-        if upto != "headers":
-            keep = self.filter_detections(det, hdr).reshape(-1)
-            out = (detf, hdr, keep)
-            if upto != "filter":
-                out = (detf, hdr, self.decode_payloads(x, detf, hdr, keep, chan), keep)
+        if det.index.ndim == 2:
+            detf, chan = flatten_detections(det, self.channel_ids(*det.index.shape, det.index.device))
+        else:
+            detf, chan = det, None
+        hdr, header_symbols = self.decode_headers(x, detf, chan)
+        busy_end, keep = self.filter_detections(det, hdr, busy0)
+        keep = keep.reshape(-1)
+        res = self.decode_payloads(x, detf, hdr, keep, chan)
         detf.overflow = det.overflow.any()
-        return out
+        return Decoded(detf, hdr, header_symbols, res, keep, busy_end)
 
-    def _channel_ids(self, c: int, d: int, device: torch.device) -> torch.Tensor:
+    def decode_bank(self, x: torch.Tensor, det: Detections):
+        """Decode all channels' detections of a bank ``[C, N]`` as one flat
+        batch (:meth:`decode`). Returns ``(det_flat, hdr, res, keep)``."""
+        out = self.decode(x, det)
+        return out.det, out.hdr, out.res, out.keep
+
+    def channel_ids(self, c: int, d: int, device: torch.device) -> torch.Tensor:
         """Each row's channel in a flattened ``[C, D]`` batch, built once
-        per ``(C, D, device)``."""
+        per ``(C, D, device)``: every caller gets the same tensor."""
         ids = self._chan_ids.get((c, d, device))
         if ids is None:
             ids = self._chan_ids[c, d, device] = torch.arange(c, device=device).repeat_interleave(d)
@@ -606,12 +636,9 @@ class Receiver(nn.Module):
 
     def receive(self, samples: np.ndarray | torch.Tensor) -> PayloadResult:
         """One-shot receive over a full capture (numpy, or a complex tensor
-        on the receiver's device): pad, acquire, decode headers, suppress
-        overlapping detections, decode payloads. Rows are aligned with the
-        sorted detections; ``accepted`` marks decoded user packets."""
+        on the receiver's device): pad, acquire, then :meth:`decode`. Rows
+        are aligned with the sorted detections; ``accepted`` marks decoded
+        user packets."""
         x = self.pad(samples)
         next_step()
-        det = self.acquirer.acquire(x)
-        hdr, _ = self.decode_headers(x, det)
-        keep = self.filter_detections(det, hdr)
-        return self.decode_payloads(x, det, hdr, keep)
+        return self.decode(x, self.acquirer.acquire(x)).res

@@ -90,10 +90,11 @@ def sharded_group_decode(
     """
     dd = rx.config.max_detections
     det = rx.acquirer.acquire(g_ext, fresh_lo=fresh_lo, fresh_hi=fresh_lo + fresh_len)
-    detf, chan = flatten_detections(det)
-    detf.overflow = det.overflow.any()
+    detf, chan = flatten_detections(det, rx.channel_ids(*det.index.shape, det.index.device))
     hdr, _ = rx.decode_headers(g_ext, detf, chan)
     g = g_ext.shape[0]
+    # its own scan, not Receiver.filter_detections: every time shard's
+    # extents are exchanged between the header pass and the scan
     with span("rx.suppress", g_ext.device):  # the time shards' exchange included
         extent = packet_extent_samples(
             hdr.packet_length, hdr.header_ok, rx.config.samples_per_symbol
@@ -107,6 +108,7 @@ def sharded_group_decode(
         t = dist.get_rank(time_group)
         keep = keep_all[:, t * dd : (t + 1) * dd].reshape(-1)
     res = rx.decode_payloads(g_ext, detf, hdr, keep, chan)
+    detf.overflow = det.overflow.any()
     # valid is fresh-window restricted already; keep makes it the row's
     # final verdict
     detf.valid = detf.valid & keep

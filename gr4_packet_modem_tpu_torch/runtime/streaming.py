@@ -52,13 +52,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..models.receiver import (
-    Receiver,
-    RxConfig,
-    flatten_detections,
-    packet_extent_samples,
-    suppress_overlapping,
-)
+from ..models.receiver import Receiver, RxConfig
 from ..models.transmitter import Transmitter
 from ..ops.fir import stream_interpolating_fir
 from ..utils import constants as C
@@ -317,25 +311,16 @@ class StreamingBank:
 
     def _decode_group(self, buf: torch.Tensor, busy0: torch.Tensor):
         """Acquire over the fresh window and decode one channel group
-        ``buf`` ``[G, buf_len]`` with suppression state ``busy0`` ``[G]``."""
+        ``buf`` ``[G, buf_len]`` with suppression state ``busy0`` ``[G]``
+        (``Receiver.decode``)."""
         rx = self.rx
-        dd = rx.config.max_detections
         det = rx.acquirer.acquire(buf, fresh_lo=self.fp, fresh_hi=self.fp + self.block)
-        detf, chan = flatten_detections(det)
-        hdr, hdr_syms = rx.decode_headers(buf, detf, chan)
-        with span("rx.suppress", buf.device):
-            extent = packet_extent_samples(
-                hdr.packet_length, hdr.header_ok, rx.config.samples_per_symbol
-            )
-            busy_end, keep = suppress_overlapping(
-                det.index, det.valid, extent.view(-1, dd), busy0
-            )
-        res = rx.decode_payloads(buf, detf, hdr, keep.reshape(-1), chan)
+        d = rx.decode(buf, det, busy0)
         out = (
-            detf.index, res.lengths, hdr.packet_type, detf.esn0_db, detf.freq,
-            hdr.arm, res.accepted, res.data, det.overflow.any(), busy_end,
+            d.det.index, d.res.lengths, d.hdr.packet_type, d.det.esn0_db, d.det.freq,
+            d.hdr.arm, d.res.accepted, d.res.data, d.det.overflow, d.busy_end,
         )
-        return out + ((hdr_syms, res.symbols) if self._with_syms else ())
+        return out + ((d.header_symbols, d.res.symbols) if self._with_syms else ())
 
     @property
     def _with_syms(self) -> bool:
@@ -362,7 +347,7 @@ class StreamingBank:
         idx, lens, types, esn0, freq, arm, acc, data, ovf, busy_end = merged[:10]
         # busy state pre-shifted into the next block's coordinates
         self._busy = (busy_end - b).clamp(min=_IDLE_BUSY)
-        chan = torch.arange(idx.shape[0], device=idx.device) // self.rx.config.max_detections
+        chan = self.rx.channel_ids(c, self.rx.config.max_detections, idx.device)
         packed = pack_result_wire(
             idx, lens, types, esn0, freq, arm, chan, acc, data, ovf.any(),
             self.result_budget,

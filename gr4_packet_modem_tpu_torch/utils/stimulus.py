@@ -1,11 +1,12 @@
 """Bench stimulus: burst-mode samples of one packet, in numpy.
 
 The sequential per-packet transmitter that the receiver's checks are fed
-with (``chip_smoke.py``, ``scripts/profile_rx_torch.py``): the parts of
-``tests/reference_impl.py`` that build a burst, kept here so that the port
-runs without the JAX package. It is a bench stimulus, one packet at a time
-with explicit loops, not a transmitter API. ``tests/test_torch_standalone.py``
-holds it bit for bit against ``tests/reference_impl.py``.
+with (``chip_smoke.py`` and the scripts that import its stimulus): the
+parts of ``tests/reference_impl.py`` that build a burst, kept here so that
+the port runs without the JAX package. It is a bench stimulus, one packet
+at a time with explicit loops, not a transmitter API.
+``tests/test_torch_standalone.py`` holds it bit for bit against
+``tests/reference_impl.py``.
 :func:`costas_symbols` is the Costas loop's input for the K4 checks.
 """
 

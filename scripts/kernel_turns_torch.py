@@ -44,7 +44,7 @@ def step_payload(torch, cs, dev):
     import dataclasses
 
     from gr4_packet_modem_tpu_torch.entry import BENCH_BLOCK, BENCH_CHANNELS, BENCH_CONFIG
-    from gr4_packet_modem_tpu_torch.models.receiver import Receiver, flatten_detections
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver
 
     rx = Receiver(dataclasses.replace(BENCH_CONFIG, payload_carrier="costas"), dev)
     samples, _, _ = cs.bench_signal(BENCH_BLOCK, BENCH_CHANNELS)
@@ -52,12 +52,12 @@ def step_payload(torch, cs, dev):
                     dtype=torch.complex64, device=dev)
     x[:, rx.front_pad : rx.front_pad + BENCH_BLOCK] = torch.from_numpy(samples).to(dev)
     det = rx.acquirer.acquire(x)
-    detf, chan = flatten_detections(det)
-    hdr, _ = rx.decode_headers(x, detf, chan)
-    keep = rx.filter_detections(det, hdr).reshape(-1)
-    syms = rx._extract_symbols(x, hdr.n_base, hdr.arm, detf.freq, detf.index, hdr.amp_scale,
+    d = rx.decode(x, det)
+    chan = rx.channel_ids(*det.index.shape, det.index.device)  # the tensor decode flattened with
+    hdr = d.hdr
+    syms = rx._extract_symbols(x, hdr.n_base, hdr.arm, d.det.freq, d.det.index, hdr.amp_scale,
                                192, rx.config.max_payload_syms, chan)
-    return syms, hdr.phase, hdr.freq, hdr.header_ok & keep
+    return syms, hdr.phase, hdr.freq, hdr.header_ok & d.keep
 
 
 def main() -> int:

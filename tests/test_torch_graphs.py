@@ -323,9 +323,9 @@ def test_flatten_detections_views_and_channel_ids():
     assert torch.equal(chan, torch.arange(3).repeat_interleave(CFG["max_detections"]))
     assert detf.index.data_ptr() == det.index.data_ptr() and torch.equal(detf.index, det.index.reshape(-1))
     assert detf.overflow.shape == (3,)
-    ids = rx._channel_ids(3, CFG["max_detections"], det.index.device)
+    ids = rx.channel_ids(3, CFG["max_detections"], det.index.device)
     assert flatten_detections(det, ids)[1] is ids
-    assert rx._channel_ids(3, CFG["max_detections"], det.index.device) is ids
+    assert rx.channel_ids(3, CFG["max_detections"], det.index.device) is ids
 
 
 def test_failed_capture_drops_the_chain():

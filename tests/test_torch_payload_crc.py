@@ -163,7 +163,7 @@ def test_decode_payloads_before_and_after_the_move(max_len, monkeypatch):
     det = rx.acquirer.acquire(x)
     detf, chan = receiver_mod.flatten_detections(det)
     hdr, _ = rx.decode_headers(x, detf, chan)
-    keep = rx.filter_detections(det, hdr).reshape(-1)
+    keep = rx.filter_detections(det, hdr)[1].reshape(-1)
     before = trace.counters().get("rx.payload.crc_kernel_rows", 0)
     after_move = rx.decode_payloads(x, detf, hdr, keep, chan)
     assert trace.counters().get("rx.payload.crc_kernel_rows", 0) == before

@@ -15,7 +15,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 from gr4_packet_modem_tpu.models.receiver import Receiver as JReceiver  # noqa: E402
+from gr4_packet_modem_tpu.models.receiver import (  # noqa: E402
+    packet_extent_samples as jpacket_extent_samples,
+    suppress_overlapping as jsuppress_overlapping,
+)
 from gr4_packet_modem_tpu.models.receiver import RxConfig as JConfig  # noqa: E402
 from gr4_packet_modem_tpu.models.transmitter import Transmitter, TxConfig  # noqa: E402
 from gr4_packet_modem_tpu.utils.ragged import PacketBatch, ragged_concat  # noqa: E402
@@ -134,6 +140,47 @@ def test_bank_step_decodes_all_packets(bank):
     expected = payloads * x.shape[0]  # channel-major rows, index-sorted
     for g, e in zip(got, expected):
         np.testing.assert_array_equal(g, e)
+
+
+def test_decode_seeded_suppression(bank):
+    """``Receiver.decode``, the chain every caller runs, against the JAX
+    receiver: unseeded, its rows are the JAX ``bank_step``'s; unseeded and
+    with a busy-until seed past channel 0's first detection (which that
+    seed drops), ``busy_end`` and ``keep`` are JAX's
+    ``suppress_overlapping(packet_extent_samples(...))`` per channel on
+    the same detections, header lengths and seed."""
+    jrx, rx, x, _ = bank
+    det = rx.acquirer.acquire(torch.from_numpy(x))
+    c, dd = det.index.shape
+    got = rx.decode(torch.from_numpy(x), det)
+    jdet, _, jres, jkeep = jrx.bank_step(x, 0)
+    v = np.asarray(jdet.valid)
+    np.testing.assert_array_equal(got.det.valid.numpy(), v)
+    np.testing.assert_array_equal(got.keep.numpy(), np.asarray(jkeep))
+    np.testing.assert_array_equal(got.res.accepted.numpy(), np.asarray(jres.accepted))
+    np.testing.assert_array_equal(got.res.lengths.numpy()[v], np.asarray(jres.lengths)[v])
+    np.testing.assert_array_equal(got.res.data.numpy()[v], np.asarray(jres.data)[v])
+    assert got.header_symbols.shape == (c * dd, 192) and got.det.overflow.ndim == 0
+
+    extent = jpacket_extent_samples(
+        jnp.asarray(got.hdr.packet_length.numpy().reshape(c, dd)),
+        jnp.asarray(got.hdr.header_ok.numpy().reshape(c, dd)),
+        rx.config.samples_per_symbol,
+    )
+    scan = jax.vmap(jsuppress_overlapping)
+    index, valid = jnp.asarray(det.index.numpy()), jnp.asarray(det.valid.numpy())
+    want_busy, want_keep = scan(index, valid, extent, jnp.full((c,), -1, index.dtype))
+    np.testing.assert_array_equal(got.busy_end.numpy(), np.asarray(want_busy))
+    np.testing.assert_array_equal(got.keep.numpy(), np.asarray(want_keep).reshape(-1))
+
+    assert bool(det.valid[0, 0]) and bool(got.res.accepted[0])
+    seed = torch.tensor([int(det.index[0, 0]) + 1, -1, -1])
+    seeded = rx.decode(torch.from_numpy(x), det, seed)
+    assert not bool(seeded.keep[0]) and not bool(seeded.res.accepted[0])
+    want_busy, want_keep = scan(index, valid, extent, jnp.asarray(seed.numpy(), index.dtype))
+    np.testing.assert_array_equal(seeded.busy_end.numpy(), np.asarray(want_busy))
+    np.testing.assert_array_equal(seeded.keep.numpy(), np.asarray(want_keep).reshape(-1))
+    assert torch.equal(seeded.keep[dd:], got.keep[dd:])  # the unseeded channels
 
 
 def test_bank_suppression_is_per_channel():

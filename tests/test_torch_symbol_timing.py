@@ -128,7 +128,7 @@ def test_fractional_delay_decode_and_evm(rx, jrx, clean_signal, delay):
     sync = corrected[0, : C.SYNCWORD_LEN].numpy()
     evm = float(np.mean(np.abs(sync - 1.0) ** 2))
     assert evm < 0.005, f"syncword EVM {evm:.4f} at delay {delay}"
-    keep = rx.filter_detections(det, hdr)
+    _, keep = rx.filter_detections(det, hdr)
     res = rx.decode_payloads(x, det, hdr, keep)
     assert bool(res.accepted[0])
     np.testing.assert_array_equal(res.data[0, : PAYLOAD.size].numpy(), PAYLOAD)
@@ -152,7 +152,7 @@ def test_negative_time_est_with_cfo(rx, jrx, clean_signal):
     sync = corrected[0, : C.SYNCWORD_LEN].numpy()
     tail_evm = float(np.mean(np.abs(sync[48:] - np.mean(sync[48:])) ** 2))
     assert tail_evm < 0.02
-    keep = rx.filter_detections(det, hdr)
+    _, keep = rx.filter_detections(det, hdr)
     res = rx.decode_payloads(xt, det, hdr, keep)
     assert bool(res.accepted[0])
 
