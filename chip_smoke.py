@@ -26,7 +26,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    inputs. The recursions
    K4 and K5 are also timed at B=32 (one warp) and given a chain floor: the
    cycles of their step bodies run by one warp on registers, over the SM
-   clock that ``nvidia-smi`` reads;
+   clock that ``nvidia-smi`` reads. The fused extraction
+   (``pm_extract_symbols``) at the header pass's, the dense cells' payload
+   and the mixed cell's payload shapes (nine chunks) on a random bank laid
+   out as a bank step lays its rows, within K3's tolerance of the plain
+   chain and bit-identical to the unfused chain of kernels it replaced
+   (K2, the derotation in PyTorch, K3's plane entry), timed beside both;
+   its bound the union of the bank samples its rows need (rows of a
+   channel overlap), the taps, the rows' parameters and the output
+   (``extraction_least_bytes``). The ``kernels`` line gives each launch
+   key's main-path shape: K2 at acquisition's noise window (R=1569), K3
+   (``matched``) the fused extraction at the mixed payload; K3's plane
+   entry is timed beside it (``matched_plane`` rows);
 4. slice: ``Receiver.bank_step`` at the bench geometry (64 channels of
    2**19 samples of back-to-back 1500-byte bursts, 9 frequency bins,
    1536-byte max payload, 24 detection slots, V&V payload carrier, fused
@@ -113,7 +124,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    (16,384 + 5,000 bytes at 4 bins, 65,535 bytes at 1 bin) with both
    payload carriers through the port's transmitter on the card, ``rotate``,
    numpy noise and ``Receiver.receive``: every payload byte-exact, all seven
-   kernels launched, K2 and K3 on 33 or 129 payload chunks; the receive
+   kernels launched, the fused extraction once a pass (the payload's 33 or
+   129 chunks in one launch) and K2 once (acquisition); the receive
    time (median of 3), its peak device memory and each kernel's device time
    in the acquisition and the payload pass; the V&V cases and 16 KiB Costas
    equal to the port's CPU run on the same samples. K4 at [2, 262,156]
@@ -245,6 +257,66 @@ def k1_work(fpad: int, s: int, n: int, nb: int) -> tuple[float, float]:
     bin."""
     return (2 * (fpad + 1) * s * 4 + nb * n * 8 + fpad * n * 8,
             fpad * ((1 + nb) * (4 * n * np.log2(n) - 6 * n + 8) + nb * n * 10))
+
+
+# the fused extraction's timed shapes: rows, symbols, chunk, first symbol,
+# channels, samples a channel (the header pass and the dense cells' payload
+# pass on 64 x 553,396 samples, the mixed cell's payload pass on 64 x 594,356)
+EXTRACT_SHAPES = {
+    "header": (1536, 192, 192, 0, 64, 553_396),
+    "dense_payload": (1536, 6160, 6160, 192, 64, 553_396),
+    "mixed_payload": (3584, 16400, 2048, 192, 64, 594_356),
+}
+
+
+def extract_inputs(torch, gen, d: int, s: int, chunk: int, off: int, chans: int, row_len: int) -> tuple:
+    """``extract_symbols``' arguments for ``d`` rows on a random bank, as a
+    bank step lays them: the rows channel-major, each channel's starts
+    sorted and spread over its row (so that neighbouring slots overlap in
+    the bank, as packets back to back do), of both parities; the last
+    row's starts near its row's end (its later chunks clamped); CFOs to
+    0.03 rad/sample, random arm taps and amplitude scales."""
+    dev = torch.device("cuda")
+    x = torch.randn(chans * row_len, generator=gen, device=dev, dtype=torch.complex64)
+    per = d // chans
+    chan = torch.arange(chans, device=dev).repeat_interleave(per)
+    span = 4 * (off + s)
+    n_base = torch.randint(0, row_len - span, (chans, per), generator=gen, device=dev).sort(dim=1).values
+    n_base = n_base.reshape(-1)
+    n_base[-1] = row_len - 700
+    arm_taps = 0.3 * torch.randn(32, 44, generator=gen, device=dev)
+    arm = torch.randint(0, 32, (d,), generator=gen, device=dev)
+    freq = 0.06 * torch.rand(d, generator=gen, device=dev) - 0.03
+    n0 = n_base - torch.randint(0, 60, (d,), generator=gen, device=dev)
+    amp = 0.5 + 1.5 * torch.rand(d, generator=gen, device=dev)
+    return x, row_len, n_base, chan, arm, arm_taps, freq, n0, amp, 4, off, s, chunk
+
+
+def extraction_least_bytes(n_base, chan, row_len: int, kk: int, sps: int, off: int, s: int,
+                           chunk: int, arms: int) -> int:
+    """The least bytes a fused extraction of ``s`` symbols from symbol
+    ``off`` of each row moves: the union over rows and chunks of the bank
+    samples the written symbols need (each chunk's start clamped as the
+    kernel clamps it; the rows of a channel overlap, as packets back to
+    back do, and a sample is read once), the ``[arms, kk]`` tap table,
+    each row's six parameters (40 bytes) and the ``[D, s]`` complex64
+    output written once. ``n_base`` and ``chan`` (None: one capture) are
+    numpy arrays."""
+    n_base = np.asarray(n_base, np.int64)
+    at = 0 if chan is None else np.asarray(chan, np.int64) * row_len
+    r = sps * (chunk - 1) + kk
+    first, end = [], []
+    for c in range(-(-s // chunk)):
+        st = at + np.clip(n_base + sps * (off + c * chunk) - (kk - 1), 0, row_len - r)
+        first.append(st)
+        end.append(st + sps * (min(chunk, s - c * chunk) - 1) + kk)
+    first, end = np.concatenate(first), np.concatenate(end)
+    order = np.argsort(first, kind="stable")
+    first, reach = first[order], np.maximum.accumulate(end[order])
+    runs = np.flatnonzero(np.r_[True, first[1:] > reach[:-1]])  # where a run of overlapping spans starts
+    samples = int((reach[np.r_[runs[1:] - 1, first.size - 1]] - first[runs]).sum())
+    d = n_base.shape[0]
+    return samples * 8 + arms * kk * 4 + d * 40 + d * s * 8
 
 
 def event_ms(torch, fn, reps: int = 10) -> float:
@@ -544,7 +616,9 @@ def _kernel_checks(torch, card: str, chain) -> dict:
         fetch_regions, fetch_regions_plain, fetch_rows, fetch_rows_plain,
     )
     from gr4_packet_modem_tpu_torch.ops.ldpc_cuda import ldpc_totals
-    from gr4_packet_modem_tpu_torch.ops.matched_cuda import matched_filter, matched_filter_plain
+    from gr4_packet_modem_tpu_torch.ops.matched_cuda import (
+        extract_symbols, extract_symbols_plain, matched_filter, matched_filter_plain,
+    )
     from gr4_packet_modem_tpu_torch.utils.stimulus import costas_symbols, ldpc_encode_bytes
 
     dev = torch.device("cuda")
@@ -590,7 +664,9 @@ def _kernel_checks(torch, card: str, chain) -> dict:
                 "sm_mhz": floor["sm_mhz"]}
 
     # K2 region fetch: the flattened 64-channel complex64 bank, starts of
-    # both parities and both edge starts
+    # both parities and both edge starts; R=1569 is acquisition's noise
+    # window, the main path's one K2 launch a step, R=808 and 24,680 the
+    # header's and the dense payload's regions of the unfused chain
     t = 64 * 553_396
     x = torch.randn(t, generator=gen, device=dev, dtype=torch.complex64)
     for r in (1569, 808, 24_680):
@@ -605,7 +681,7 @@ def _kernel_checks(torch, card: str, chain) -> dict:
         pms = timed(torch, lambda: fetch_regions_plain(x, starts, r))["ms"]
         lib = timed(torch, lambda: torch.view_as_real(x).unfold(0, r, 1)[starts])["ms"]
         record("fetch", f"D={d} R={r}", 0.0, k, pms, lib, 2 * (2 * d * r * 4) + d * 8, 0,
-               r == 24_680)
+               r == 1569)
     del x
 
     # K2b row fetch: a float32 plane of the bank's size (the bank's
@@ -677,8 +753,9 @@ def _kernel_checks(torch, card: str, chain) -> dict:
                None, nbytes, ops, label == "N=2048")
         del x, ar, ai, br, bi, args
 
-    # K3 matched filter: header (S=192) and payload (S=6160) passes; the
-    # kernel and the depthwise strided conv1d in turns
+    # K3's plane entry (matched_filter, the unfused chain's filter and no
+    # longer on the main path): header (S=192) and payload (S=6160) regions;
+    # the kernel and the depthwise strided conv1d in turns
     kt, sps = 44, 4
     taps = torch.randn(d, kt, generator=gen, device=dev)
     for s in (192, 6160):
@@ -707,9 +784,41 @@ def _kernel_checks(torch, card: str, chain) -> dict:
             f"kernel {k2['ms']:.4f}, conv1d {l2:.4f} ms")
         k = mean_timed(k1, k2)
         pms = timed(torch, lambda: matched_filter_plain(zr, zi, taps, sps, s), reps=3)["ms"]
-        record("matched", f"D={d} S={s} R={r}", err, k, pms, (l1 + l2) / 2,
-               2 * d * r * 4 + d * kt * 4 + 2 * d * s * 4, 2 * 2 * d * s * kt, s == 6160)
+        record("matched_plane", f"D={d} S={s} R={r}", err, k, pms, (l1 + l2) / 2,
+               2 * d * r * 4 + d * kt * 4 + 2 * d * s * 4, 2 * 2 * d * s * kt, False)
         del zr, zi
+
+    # the fused extraction (csrc/matched.cu, pm_extract_symbols; launch
+    # key matched, the main path's K3) at the cells' shapes, on a random
+    # bank laid out as a bank step lays its rows: within K3's tolerance of
+    # the plain chain (K2's, the derotation's and K3's plain passes), bit
+    # for bit the unfused chain of kernels it replaced (K2, the derotation
+    # in PyTorch, K3's plane entry), timed beside both; bound: the union of
+    # the samples its rows need (extraction_least_bytes). The mixed
+    # payload's row is the kernel's main record.
+    for label, (dd, s, chunk, off, chans, row_len) in EXTRACT_SHAPES.items():
+        args = extract_inputs(torch, gen, dd, s, chunk, off, chans, row_len)
+
+        def unfused():
+            return extract_symbols_plain(*args, fetch=fetch_regions, filt=matched_filter)
+
+        got = extract_symbols(*args)
+        torch.cuda.synchronize()
+        want = extract_symbols_plain(*args)
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-4), f"extract {label}: beyond rtol 1e-5 atol 1e-4")
+        check(torch.equal(got, unfused()), f"extract {label}: not bit-identical to the unfused chain")
+        err = (got - want).abs().max().item()
+        del got, want
+        k = timed(torch, lambda: extract_symbols(*args))
+        pms = timed(torch, lambda: extract_symbols_plain(*args), reps=3)["ms"]
+        ums = timed(torch, unfused, reps=3)["ms"]
+        samples = -(-s // chunk) * (4 * (chunk - 1) + kt)
+        nbytes = extraction_least_bytes(args[2].cpu().numpy(), args[3].cpu().numpy(), row_len, kt, 4,
+                                        off, s, chunk, args[5].shape[0])
+        record("matched", f"extract {label} D={dd} S={s} chunk={chunk}", err, k, pms, None,
+               nbytes, dd * (samples * 48 + s * 4 * kt), label == "mixed_payload",
+               {"unfused_ms": ums, "unfused_bit_identical": True})
+        del args
 
     # K4 Costas loop: a locked loop on noisy QPSK with residual CFO (the
     # regime the receiver runs it in), header and payload geometries
@@ -1934,19 +2043,21 @@ def kernel_split(torch, fn, launches: dict, reps: int = 3) -> dict:
 
 def envelope_work(rx, xp) -> list:
     """(part, kernel, (bytes, operations) a launch) of K1 in the
-    acquisition of the padded capture ``xp`` and of K2, K3 and K4 in the
-    payload pass, counted as ``_kernel_checks`` counts them."""
+    acquisition of the padded capture ``xp`` and of the fused extraction
+    (every chunk in one launch) and K4 in the payload pass, counted as
+    ``_kernel_checks`` counts them (the extraction's rows apart in the
+    capture, each row's span read once)."""
     cfg, a = rx.config, rx.acquirer
     d, kt, sps = cfg.max_detections, rx.arm_len, cfg.samples_per_symbol
     n, s, nb = a.config.fft_size, a.stride, a.num_bins
     fpad = a._frames_planes(xp.view(1, -1))[0].shape[0]
     syms = cfg.max_payload_syms
-    chunk = rx._extraction_chunks(syms)[0]
-    r = sps * (chunk - 1) + kt
+    chunk, chunks = rx._extraction_chunks(syms)
+    samples = chunks * (sps * (chunk - 1) + kt)
     work = [
         ("acquire", "correlate", k1_work(fpad, s, n, nb)),
-        ("payloads", "fetch", (2 * (2 * d * r * 4) + d * 8, 0)),
-        ("payloads", "matched", (2 * d * r * 4 + d * kt * 4 + 2 * d * chunk * 4, 2 * 2 * d * chunk * kt)),
+        ("payloads", "matched", (d * ((sps * (syms - 1) + kt) * 8 + 40 + syms * 8) + rx.arm_taps.numel() * 4,
+                                 d * (samples * 48 + syms * 4 * kt))),
     ]
     if cfg.payload_carrier == "costas":
         work.append(("payloads", "costas", (2 * d * syms * 8 + 4 * d * 4, d * syms * (15 + 40))))
@@ -1954,27 +2065,24 @@ def envelope_work(rx, xp) -> list:
 
 
 def envelope_kernel_rows(torch, card: str, rx, xp) -> list:
-    """K1, K2 and K3 alone at the shapes of ``rx``'s receive of the padded
-    capture ``xp`` (K1 on its frames, K2 and K3 at one payload chunk on
-    random data), each against its plain version (K2 bit for bit) and timed
-    with it and its library call as phase 3 times them, the conv1d
-    yardstick with TF32 off."""
-    import torch.nn.functional as F
-
+    """K1 and the fused extraction alone at the shapes of ``rx``'s receive
+    of the padded capture ``xp`` (K1 on its frames, the extraction on the
+    payload's slots at random starts, every chunk in one launch, its bound
+    from the union of the samples they need), each against its plain
+    version and timed with it as phase 3 times them."""
     from gr4_packet_modem_tpu_torch.ops.acquire_cuda import fused_best_power, fused_best_power_plain
-    from gr4_packet_modem_tpu_torch.ops.fetch_cuda import fetch_regions, fetch_regions_plain
-    from gr4_packet_modem_tpu_torch.ops.matched_cuda import matched_filter, matched_filter_plain
+    from gr4_packet_modem_tpu_torch.ops.matched_cuda import extract_symbols, extract_symbols_plain
 
     cfg, a, dev = rx.config, rx.acquirer, xp.device
     gen = torch.Generator(device=dev).manual_seed(cfg.max_payload_len)
     work = {k: w for _, k, w in envelope_work(rx, xp)}
     rows = []
 
-    def row(name, shape, err, fn, plain, lib):
+    def row(name, shape, err, fn, plain, lib, nbytes=None):
         k = timed(torch, fn)
         pms = timed(torch, plain, reps=3)["ms"]
         lms = timed(torch, lib)["ms"] if lib else None
-        bms, by = bound(*work[name])
+        bms, by = bound(work[name][0] if nbytes is None else nbytes, work[name][1])
         rows.append({"name": name, "shape": shape, "max_abs_err": err, **k, "plain_ms": pms,
                      "library_ms": lms, "bound_ms": bms, "bound_by": by})
         libs = f"{lms:.4f} ms" if lms is not None else "none"
@@ -1996,37 +2104,22 @@ def envelope_kernel_rows(torch, card: str, rx, xp) -> list:
         lambda: fused_best_power(*args, table=a.replica_table), lambda: fused_best_power_plain(*args), None)
     del kp, kb, pp, pb
 
-    # K2 and K3 at one payload chunk
+    # the fused extraction over the payload's slots, all chunks in one launch
     d, kt, sps = cfg.max_detections, rx.arm_len, cfg.samples_per_symbol
-    chunk = rx._extraction_chunks(cfg.max_payload_syms)[0]
-    r, t = sps * (chunk - 1) + kt, xp.numel()
-    starts = torch.randint(0, t - r + 1, (d,), generator=gen, device=dev)
-    starts[0] = t - r
-    kr, ki = fetch_regions(xp, starts, r)
-    pr, pi = fetch_regions_plain(xp, starts, r)
-    check(torch.equal(kr, pr) and torch.equal(ki, pi), f"fetch R={r}: not bit-exact")
-    row("fetch", f"D={d} R={r}", 0.0, lambda: fetch_regions(xp, starts, r),
-        lambda: fetch_regions_plain(xp, starts, r), lambda: torch.view_as_real(xp).unfold(0, r, 1)[starts])
-    zr, zi = (torch.randn(d, r, generator=gen, device=dev) for _ in range(2))
-    taps = torch.randn(d, kt, generator=gen, device=dev)
-
-    def conv():
-        w = taps.view(d, 1, kt)
-        return (F.conv1d(zr.view(1, d, r), w, stride=sps, groups=d),
-                F.conv1d(zi.view(1, d, r), w, stride=sps, groups=d))
-
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        (kr, ki), (pr, pi) = (f(zr, zi, taps, sps, chunk) for f in (matched_filter, matched_filter_plain))
-        cr, ci = conv()
-        for u, v in ((kr, pr), (ki, pi), (cr[0], pr), (ci[0], pi)):
-            check(torch.allclose(u, v, rtol=1e-5, atol=1e-4), f"matched S={chunk}: beyond rtol 1e-5 atol 1e-4")
-        row("matched", f"D={d} S={chunk} R={r}", max((kr - pr).abs().max().item(), (ki - pi).abs().max().item()),
-            lambda: matched_filter(zr, zi, taps, sps, chunk),
-            lambda: matched_filter_plain(zr, zi, taps, sps, chunk), conv)
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
+    syms = cfg.max_payload_syms
+    chunk = rx._extraction_chunks(syms)[0]
+    t = xp.numel()
+    n_base = torch.randint(0, t - sps * (192 + syms), (d,), generator=gen, device=dev)
+    n_base[0] = t - 700  # its chunks clamped at the capture's end
+    ex = (xp.reshape(-1), t, n_base, None, torch.randint(0, rx.arm_taps.shape[0], (d,), generator=gen, device=dev),
+          rx.arm_taps, 0.002 * torch.rand(d, generator=gen, device=dev) - 0.001, n_base - 5,
+          0.5 + torch.rand(d, generator=gen, device=dev), sps, 192, syms, chunk)
+    got, want = extract_symbols(*ex), extract_symbols_plain(*ex)
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-4), f"extract S={syms}: beyond rtol 1e-5 atol 1e-4")
+    row("matched", f"extract D={d} S={syms} chunk={chunk}", (got - want).abs().max().item(),
+        lambda: extract_symbols(*ex), lambda: extract_symbols_plain(*ex), None,
+        extraction_least_bytes(n_base.cpu().numpy(), None, t, kt, sps, 192, syms, chunk, rx.arm_taps.shape[0]))
+    del got, want
     _flush.clear()  # so the next receive's peak device memory leaves it out
     return rows
 
@@ -2059,16 +2152,16 @@ def envelope_phase(torch, card: str, dev, chain) -> dict:
             for p, n in zip(payloads, res.lengths[res.accepted].tolist()):
                 check(n == p.size, f"{label}: length {n}, not {p.size}")
             chunks = rx._extraction_chunks(cfg.max_payload_syms)[1]
-            check(launches["matched"] == 1 + chunks and launches["fetch"] == 2 + chunks,
-                  f"{label}: K2 {launches['fetch']} and K3 {launches['matched']} launches, not "
-                  f"{2 + chunks} and {1 + chunks} ({chunks} payload chunks)")
+            check(launches["matched"] == 2 and launches["fetch"] == 1,
+                  f"{label}: {launches['matched']} fused extractions and {launches['fetch']} K2 launches, "
+                  f"not 2 and 1 ({chunks} payload chunks in one launch)")
             check(launches["costas"] == (2 if carrier == "costas" else 1),
                   f"{label}: K4 launched {launches['costas']} times")
             ms = median_ms(torch, lambda: rx.receive(xd).accepted.sum().item(), reps=3)
             busy, ops = busy_ms(torch, lambda: rx.receive(xd), reps=3)
             # device time a call of each kernel: the acquisition (K1, K2,
-            # K2b), then the payload pass alone (K2 and K3 on every chunk, K4
-            # in costas)
+            # K2b), then the payload pass alone (the fused extraction of every
+            # chunk, K4 in costas)
             xp = rx.pad(xd)
             det = rx.acquirer.acquire(xp)
             hdr, _ = rx.decode_headers(xp, det)
@@ -2091,7 +2184,7 @@ def envelope_phase(torch, card: str, dev, chain) -> dict:
                 f"receive {ms:.2f} ms (median of 3), device busy {busy:.2f} ms in {ops:.0f} operations, "
                 f"peak device memory {peak / 2**20:.1f} MiB, {xn.size} samples; of "
                 f"{case['detections']} slots {rows['valid']} valid, {rows['header_ok']} headers, "
-                f"{rows['kept']} kept; launches {launches}; K2/K3 chunk launches {chunks}  [{card}]")
+                f"{rows['kept']} kept; launches {launches}; payload chunks {chunks}  [{card}]")
             log(f"  {label}: device ms a call (bound ms beside): " + "; ".join(
                 f"{part} " + ", ".join(
                     f"{k} {v['ms'] if v['ms'] is None else round(v['ms'], 4)} x{v['launches']}"

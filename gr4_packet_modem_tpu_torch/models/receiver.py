@@ -5,12 +5,15 @@ The receive chain runs as feed-forward passes over a sample buffer:
 
 1. **acquire** (``ops/acquire.py``): overlap-save syncword correlation,
    CFAR peak detection and per-candidate estimates;
-2. **header pass**: fetch each detection's region (K2), derotate, matched
-   filter at the acquisition-selected polyphase arm (K3), wipe off the
-   syncword, Costas loop (K4), LLRs, descramble, LDPC decode (K5), parse;
+2. **header pass**: fetch each detection's region, derotate, matched
+   filter at the acquisition-selected polyphase arm (on the card one
+   launch of the fused extraction kernel, ``csrc/matched.cu``), wipe off
+   the syncword, Costas loop (K4), LLRs, descramble, LDPC decode (K5),
+   parse;
 3. **suppression**: drop detections that start inside a packet already
    claimed, one short scan per channel;
-4. **payload pass**: fetch, derotate, matched filter, carrier tracking
+4. **payload pass**: fetch, derotate, matched filter (the same fused
+   extraction, every chunk in one launch), carrier tracking
    (V&V block estimator, or the Costas loop), then LLRs, descramble,
    slice, pack and CRC-32 check (``ops/crc.py::payload_crc``: one kernel
    on the card, each row read only up to its own length).
@@ -59,9 +62,8 @@ from ..ops.acquire import AcquisitionConfig, Detections, SyncwordAcquirer
 from ..ops.costas import PI, TWO_PI
 from ..ops.costas_cuda import costas_track
 from ..ops.crc import payload_crc
-from ..ops.fetch_cuda import fetch_regions
 from ..ops.ldpc import HeaderLdpcDecoder, combine_repetition
-from ..ops.matched_cuda import matched_filter
+from ..ops.matched_cuda import extract_symbols
 from ..ops.packing import pack_bits
 from ..ops.scramble import descramble_soft, keystream_np
 from .tables import receiver_tables, tables_from_numpy
@@ -341,8 +343,9 @@ class Receiver(nn.Module):
 
     def _extraction_chunks(self, num_syms: int) -> tuple[int, int]:
         """``(chunk, chunks)`` of an extraction of ``num_syms`` symbols: long
-        extractions run in ``symbol_chunk``-symbol chunks to bound the
-        ``[D, region]`` intermediates, each one K2 and one K3 launch."""
+        extractions run in ``symbol_chunk``-symbol chunks, each chunk's
+        region clamped to the row on its own (and, on the CPU, each chunk's
+        ``[D, region]`` intermediates bounded)."""
         chunk = self.config.symbol_chunk
         if num_syms > 4 * chunk:
             return chunk, -(-num_syms // chunk)
@@ -359,40 +362,27 @@ class Receiver(nn.Module):
         sym_offset: int,
         num_syms: int,
         chan: torch.Tensor | None = None,
-        chunk_span: str | None = None,
+        plain_span: str | None = None,
     ) -> torch.Tensor:
         """Matched-filter ``num_syms`` symbols from symbol ``sym_offset`` of
-        each detection: region fetch (K2), coarse derotation by
-        ``exp(-i freq (n - n0))``, polyphase-arm filtering (K3) and
-        amplitude normalisation, chunked over symbols. ``x`` is ``[N]``, or
-        a bank ``[C, N]`` with ``chan`` giving each detection's channel
-        (regions then address the flattened bank; indices stay channel-
-        local). Counts the chunks in ``rx.extract.chunks``; ``chunk_span``
-        names a span around each chunk."""
-        cfg = self.config
-        sps = cfg.samples_per_symbol
-        kk = self.arm_len
-        taps = self.arm_taps[arm].flip(1).contiguous()  # [D, K] time-reversed
+        each detection: region fetch, coarse derotation by
+        ``exp(-i freq (n - n0))``, polyphase-arm filtering and amplitude
+        normalisation, chunked over symbols (``ops/matched_cuda.py::
+        extract_symbols``: on the card one launch of the fused extraction
+        kernel for all chunks, on the CPU K2's and K3's plain versions with
+        the derotation between them). ``x`` is ``[N]``, or a bank
+        ``[C, N]`` with ``chan`` giving each detection's channel (regions
+        then address the flattened bank; indices stay channel-local).
+        Counts the chunks in ``rx.extract.chunks``; ``plain_span`` names a
+        span around the CPU route's passes (on the card the extraction is
+        one launch, inside the caller's span)."""
         chunk, nchunks = self._extraction_chunks(num_syms)
         count("rx.extract.chunks", nchunks)
-        row_len = x.shape[-1]
-        xf = x.reshape(-1)
-        region_len = sps * (chunk - 1) + kk
-        j = torch.arange(region_len, device=x.device)
-        out = []
-        for c in range(nchunks):
-            with span(chunk_span) if chunk_span else nullcontext():
-                start = n_base + sps * (sym_offset + c * chunk) - (kk - 1)
-                start = torch.clamp(start, 0, row_len - region_len)
-                fetch_start = start if chan is None else start + chan * row_len
-                rr, ri = fetch_regions(xf, fetch_start, region_len)
-                ph = -freq[:, None] * (start[:, None] + j - n0[:, None]).to(torch.float32)
-                cph, sph = torch.cos(ph), torch.sin(ph)
-                dr = rr * cph - ri * sph
-                di = rr * sph + ri * cph
-                outr, outi = matched_filter(dr, di, taps, sps, chunk)
-                out.append(torch.complex(outr, outi) * amp_scale[:, None])
-        return torch.cat(out, dim=1)[:, :num_syms].contiguous()
+        with span(plain_span) if plain_span and x.device.type == "cpu" else nullcontext():
+            return extract_symbols(
+                x.reshape(-1), x.shape[-1], n_base, chan, arm, self.arm_taps, freq, n0, amp_scale,
+                self.config.samples_per_symbol, sym_offset, num_syms, chunk,
+            )
 
     # ------------------------------------------------------------ header pass
 

@@ -60,6 +60,9 @@ _SIGNATURES = {
     "pm_correlate_bf16_resources": [_I, _P],
     # zr, zi, taps, outr, outi, region_len, ntaps, sps, num_syms, d, stream
     "pm_matched_filter": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, n_base, chan, n0, arm, arm_taps, freq, amp, out, row_len, ntaps, sps, sym_offset,
+    # num_syms, chunk, d, stream
+    "pm_extract_symbols": [_P] * 9 + [_I64, _I, _I, _I, _I, _I, _I, _P],
     # sym, out, ph0, fr0, ph_end, fr_end, b, s, offset, stream
     "pm_costas_track": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # llrs, totals, chk_vars, var_edges, b, m, dmax, n, vdeg, iters, alpha, stream

@@ -12,8 +12,8 @@ and ``pfb_arb_resample``).
 - ``pfb_symbol_filter``: the RX matched filter and decimator of one packet
   (symbol_filter.hpp) at a fixed polyphase arm: a plain slice of the
   samples, then one multiply-add per tap of the arm, elementwise as the TX
-  FIR does. The receiver runs the batched form on the card as K2 and K3
-  (``models/receiver.py::Receiver._extract_symbols``).
+  FIR does. The receiver runs the batched form on the card in the fused
+  extraction kernel (``models/receiver.py::Receiver._extract_symbols``).
 - ``pfb_arb_resample``: the channel model's arbitrary resampler
   (pfb_arb_resampler.hpp). Output sample times are known in closed form,
   so each output's arm, fractional weight and input window follow from its

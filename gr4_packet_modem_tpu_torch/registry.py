@@ -91,13 +91,14 @@ BLOCK_REGISTRY: dict[str, BlockEntry] = {
         "and K2b (estimates)"),
     "SyncwordDetectionFilter": _E("syncword_detection_filter.hpp", "model",
         "models.receiver.Receiver.filter_detections",
-        "in-packet suppression after the header pass (K2, K3, K4, K5)"),
+        "in-packet suppression after the header pass (the fused extraction, K4, K5)"),
     "CoarseFrequencyCorrection": _E("coarse_frequency_correction.hpp",
         "subsumed", "models.receiver.Receiver._extract_symbols",
-        "fused derotation in the packet symbol extraction (K2, K3)"),
+        "derotation inside the fused symbol extraction kernel (csrc/matched.cu)"),
     "SymbolFilter": _E("symbol_filter.hpp", "op",
         "ops.fir.pfb_symbol_filter",
-        "batched form on the card: Receiver._extract_symbols (K2, K3)"),
+        "batched form on the card: Receiver._extract_symbols (K3's fused extraction, "
+        "reading the bank as K2 does)"),
     "SyncwordWipeoff": _E("syncword_wipeoff.hpp", "subsumed",
         "models.receiver.Receiver.decode_headers", "bipolar multiply"),
     "PayloadMetadataInsert": _E("payload_metadata_insert.hpp", "model",
@@ -118,7 +119,7 @@ BLOCK_REGISTRY: dict[str, BlockEntry] = {
         "batched min-sum BP replacing the Rust ldpc-toolbox FFI; K5 "
         "(ops.ldpc_cuda.ldpc_totals) on CUDA tensors"),
     "HeaderParser": _E("header_parser.hpp", "subsumed",
-        "models.receiver.Receiver.decode_headers", "K2, K3, K4, K5"),
+        "models.receiver.Receiver.decode_headers", "the fused extraction, K4, K5"),
     "BinarySlicer": _E("binary_slicer.hpp", "op", "ops.packing.binary_slice"),
     "CrcCheck": _E("crc_check.hpp", "op",
         "ops.crc.BatchedCrcCheck",

@@ -43,11 +43,13 @@ Counters (:func:`count`) are kept whether tracing is on or off: an integer
 add a call. ``utils/graphs.py`` counts how each bank step ran
 (``rx.graph.captured``, ``.replayed``, ``.eager``, ``.evicted``); the
 receiver counts the work its shapes set: ``rx.extract.chunks`` (the
-symbol extractions' chunks, each one K2 and one K3 launch) and
-``rx.payload.slot_symbols`` (rows times symbols the payload pass
-decoded). A step replayed from CUDA graphs adds what the eager step adds.
-:func:`counters` reads them, and :func:`totals` returns them under
-``"counters"``.
+symbol extractions' chunks, each its own clamp of the region to the row),
+``rx.extract.fused_rows`` (the rows each launch of the fused extraction
+kernel extracted, ``ops/matched_cuda.py::extract_symbols``: on the card 2 x
+D a bank step, both passes of every step) and ``rx.payload.slot_symbols``
+(rows times symbols the payload pass decoded). A step replayed from
+CUDA graphs adds what the eager step adds. :func:`counters` reads them,
+and :func:`totals` returns them under ``"counters"``.
 """
 
 from __future__ import annotations

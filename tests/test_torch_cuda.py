@@ -17,7 +17,9 @@ from gr4_packet_modem_tpu_torch.ops.costas_cuda import costas_track, costas_trac
 from gr4_packet_modem_tpu_torch.ops.crc import crc32_ref, crc32_tables, payload_crc, payload_crc_plain  # noqa: E402
 from gr4_packet_modem_tpu_torch.ops.fetch_cuda import fetch_regions, fetch_regions_plain  # noqa: E402
 from gr4_packet_modem_tpu_torch.ops.ldpc_cuda import ldpc_totals  # noqa: E402
-from gr4_packet_modem_tpu_torch.ops.matched_cuda import matched_filter, matched_filter_plain  # noqa: E402
+from gr4_packet_modem_tpu_torch.ops.matched_cuda import (  # noqa: E402
+    extract_symbols, extract_symbols_plain, matched_filter, matched_filter_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -412,8 +414,7 @@ def test_bank_step_tracing_adds_no_device_operation(dev):
     stages = ("rx.step", "rx.acquire", "rx.headers", "rx.suppress", "rx.payload")
     launching = {"span:rx." + s for s in (
         "step", "suppress", "acquire.correlate", "acquire.peaks", "acquire.estimate", "headers.extract",
-        "headers.costas", "headers.ldpc", "payload.extract", "payload.extract.chunk", "payload.carrier",
-        "payload.crc")}
+        "headers.costas", "headers.ldpc", "payload.extract", "payload.carrier", "payload.crc")}
 
     banks = {False: x.clone(), True: x.clone()}
 
@@ -560,15 +561,17 @@ def test_bank_step_graphs_mixed4k(dev):
     steps are bit-identical to the eager step, every packet decodes, the
     4096-byte ones included, and every step adds the same work counters,
     eager or replayed: ``rx.extract.chunks`` 1 + 9,
-    ``rx.payload.slot_symbols`` 4 x 56 x 16,400 and
-    ``rx.payload.crc_kernel_rows`` 4 x 56."""
+    ``rx.payload.slot_symbols`` 4 x 56 x 16,400,
+    ``rx.payload.crc_kernel_rows`` 4 x 56 and ``rx.extract.fused_rows``
+    2 x 4 x 56 (both passes' rows through the fused extraction)."""
     from gr4_packet_modem_tpu_torch.models.receiver import Receiver, RxConfig
     from gr4_packet_modem_tpu_torch.utils import trace
 
     rx = Receiver(RxConfig(max_payload_len=4096, max_detections=56, freq_bins=4, acquisition_backend="fused",
                            acquisition_fft_size=2048, payload_carrier="costas"), dev)
     x = _mixed_bank(rx, 4)
-    names = ("rx.extract.chunks", "rx.payload.slot_symbols", "rx.payload.crc_kernel_rows")
+    names = ("rx.extract.chunks", "rx.payload.slot_symbols", "rx.payload.crc_kernel_rows",
+             "rx.extract.fused_rows")
     steps, added = [], []
     for _ in range(4):  # eager, captured, replayed, replayed
         before = trace.counters()
@@ -579,7 +582,7 @@ def test_bank_step_graphs_mixed4k(dev):
     for out in steps[1:]:
         _same_step(out, steps[0])
     assert rx.graph_counts() == {"captured": 1, "replayed": 2, "eager": 1, "evicted": 0}
-    assert added == [dict(zip(names, (10, 4 * 56 * 16400, 4 * 56)))] * 4, added
+    assert added == [dict(zip(names, (10, 4 * 56 * 16400, 4 * 56, 2 * 4 * 56)))] * 4, added
     res = steps[-1][2]
     lengths = res.lengths[res.accepted]
     assert len(lengths) == 4 * 2 * len(MIXED_LENGTHS) and int((lengths == 4096).sum()) == 4 * 2
@@ -732,8 +735,8 @@ def test_u16_max_costas_decodes_on_card(dev):
     carrier on the card (its CPU plain loop is out of Tier-1's reach): the
     port's transmitter, ``rotate`` by 0.001, noise of 0.02 a component
     from numpy, ``Receiver.receive``; accepted byte-exact at its length,
-    K4 on the header and the 262,156-symbol payload, K2 and K3 on 129
-    payload chunks."""
+    K4 on the header and the 262,156-symbol payload, the fused extraction
+    once a pass (the payload's 129 chunks in one launch)."""
     from gr4_packet_modem_tpu_torch.models.channel import rotate
     from gr4_packet_modem_tpu_torch.models.receiver import Receiver, RxConfig
     from gr4_packet_modem_tpu_torch.models.transmitter import Transmitter, TxConfig
@@ -757,7 +760,7 @@ def test_u16_max_costas_decodes_on_card(dev):
     row = int(np.nonzero(acc)[0][0])
     assert int(res.lengths[row]) == max_len
     np.testing.assert_array_equal(res.data[row, :max_len].cpu().numpy(), payload)
-    assert launches["costas"] == 2 and launches["matched"] == 1 + 129, launches
+    assert launches["costas"] == 2 and launches["matched"] == 2 and launches["fetch"] == 1, launches
     assert all(launches[k] > 0 for k in RECEIVE_KERNELS), launches
 
 
@@ -878,6 +881,162 @@ def test_bank_step_graphs_check_payloads_in_one_kernel(dev, carrier, monkeypatch
         steps.append(rx.bank_step(x, 0))
         assert _build.launch_counts()["crc"] == 1
         assert trace.counters()["rx.payload.crc_kernel_rows"] - before == 4 * 8
+    torch.cuda.synchronize()
+    assert rx.graph_counts() == {"captured": 1, "replayed": 1, "eager": 1, "evicted": 0}
+    for out in steps[1:]:
+        _same_step(out, steps[0])
+    assert int(steps[-1][2].accepted.sum()) == 4 * 3
+
+
+# the fused extraction's shapes: rows, symbols, chunk, first symbol, channels
+# and samples a channel (the cells' banks: 64 x 553,396 dense, 594,356 mixed)
+EXTRACT_SHAPES = {
+    "header": (1536, 192, 192, 0, 64, 553_396),
+    "dense_payload": (1536, 6160, 6160, 192, 64, 553_396),
+    "mixed_payload": (3584, 16400, 2048, 192, 64, 594_356),
+    "u16_envelope": (2, 262_156, 2048, 192, 1, 1_100_000),
+}
+
+
+def _extract_args(dev, name, seed, shift=0):
+    """The fused extraction's arguments at ``EXTRACT_SHAPES[name]``: a
+    random complex64 bank (flattened, starting ``shift`` samples into its
+    allocation, so that a start's sample parity and its 16-byte alignment
+    trade places), rows on random channels with starts of both parities,
+    two of them near the row's end (their chunks clamped to
+    ``row_len - R``) and two near its start; CFOs to 0.03 rad/sample,
+    random arm taps and amplitude scales."""
+    d, s, chunk, off, chans, row_len = EXTRACT_SHAPES[name]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    flat = torch.randn(chans * row_len + shift, generator=g, device=dev, dtype=torch.complex64)
+    x = flat[shift:]
+    chan = torch.randint(0, chans, (d,), generator=g, device=dev)
+    span = 4 * (off + s)
+    n_base = torch.randint(0, max(1, row_len - span), (d,), generator=g, device=dev)
+    n_base[: min(d, 4)] = torch.tensor([row_len - 3001, 20, row_len - 500, 7], device=dev)[: min(d, 4)]
+    n_base[4:] += torch.arange(d - min(d, 4), device=dev) % 2  # both parities
+    arm_taps = 0.3 * torch.randn(32, 44, generator=g, device=dev)
+    arm = torch.randint(0, 32, (d,), generator=g, device=dev)
+    freq = 0.06 * torch.rand(d, generator=g, device=dev) - 0.03
+    n0 = n_base - torch.randint(0, 60, (d,), generator=g, device=dev)
+    amp = 0.5 + 1.5 * torch.rand(d, generator=g, device=dev)
+    return (x, row_len, n_base, chan if chans > 1 else None, arm, arm_taps, freq, n0, amp, 4, off, s, chunk)
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("name", list(EXTRACT_SHAPES))
+def test_fused_extraction_matches_plain_chain(dev, name, shift):
+    """The fused extraction kernel (one launch, ``rx.extract.fused_rows``
+    counting its rows) against the unfused chain run on the card (K2's,
+    the derotation's and K3's plain passes, the scaling, chunk by chunk):
+    within K3's tolerance at the header, dense-payload, mixed-payload
+    (nine chunks, rows clamped at the row's end) and u16-envelope shapes,
+    on a bank aligned to 16 bytes and one shifted by a sample."""
+    from gr4_packet_modem_tpu_torch.utils import trace
+
+    args = _extract_args(dev, name, seed=len(name) + shift, shift=shift)
+    before_l = _build.launch_counts()["matched"]
+    before_c = trace.counters().get("rx.extract.fused_rows", 0)
+    got = extract_symbols(*args)
+    assert _build.launch_counts()["matched"] == before_l + 1
+    assert trace.counters()["rx.extract.fused_rows"] == before_c + args[2].shape[0]
+    torch.cuda.synchronize()
+    want = extract_symbols_plain(*args)
+    assert got.dtype == torch.complex64 and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("name", ["header", "dense_payload", "mixed_payload"])
+def test_fused_extraction_equals_unfused_kernel_chain(dev, name, shift):
+    """The fused extraction bit for bit against the chain of kernels it
+    replaced: a chunk at a time K2 (``fetch_regions``), the derotation in
+    PyTorch, K3's plane entry (``matched_filter``) and the scaling, the
+    chunks joined and cut (``extract_symbols_plain`` given K2's and K3's
+    wrappers), at the header, dense-payload and mixed-payload shapes, on a
+    bank aligned to 16 bytes and one shifted by a sample."""
+    args = _extract_args(dev, name, seed=3 + len(name) + shift, shift=shift)
+    chunks = -(-args[11] // args[12])
+    got = extract_symbols(*args)
+    before = _build.launch_counts()
+    want = extract_symbols_plain(*args, fetch=fetch_regions, filt=matched_filter)
+    after = _build.launch_counts()
+    assert (after["fetch"] - before["fetch"], after["matched"] - before["matched"]) == (chunks, chunks)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["header", "mixed_payload"])
+def test_fused_extraction_in_a_cuda_graph(dev, name):
+    """The fused extraction captured into a CUDA graph: each replay, with
+    the bank, the starts and the CFOs changed in place between replays, is
+    bit-identical to an eager launch on the inputs of that moment and
+    within K3's tolerance of the plain chain."""
+    args = _extract_args(dev, name, seed=11)
+    x, n_base, freq = args[0], args[2], args[6]
+    extract_symbols(*args)  # the library loaded outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = extract_symbols(*args)
+    for i in range(3):
+        if i:
+            fresh = _extract_args(dev, name, seed=20 + i)
+            x.copy_(fresh[0])
+            n_base.copy_(fresh[2])
+            freq.copy_(fresh[6])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, extract_symbols(*args))
+        torch.testing.assert_close(out, extract_symbols_plain(*args), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("carrier", ["vv", "costas"])
+def test_bank_step_graphs_extract_in_one_launch_a_pass(dev, carrier, monkeypatch):
+    """A graphed ``bank_step`` (eager, captured, replayed) extracts each
+    pass's symbols with one launch of the fused kernel: two ``matched``
+    launches a step and one ``fetch`` (acquisition's noise window),
+    ``rx.extract.fused_rows`` 2 x D a step, and neither the plain chain nor
+    ``torch.cos``/``torch.sin`` called inside an extraction; the replayed
+    step bit-identical to the eager one."""
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver, RxConfig
+    from gr4_packet_modem_tpu_torch.ops import matched_cuda
+    from gr4_packet_modem_tpu_torch.utils import trace
+
+    inside = []
+
+    def refused(*a, **k):
+        raise AssertionError("the plain extraction ran on the card's path")
+
+    def guarded(fn):
+        def call(*a, **k):
+            if inside:
+                raise AssertionError(f"{fn.__name__} called inside an extraction")
+            return fn(*a, **k)
+        return call
+
+    extract = Receiver._extract_symbols
+
+    def traced_extract(self, *a, **k):
+        inside.append(1)
+        try:
+            return extract(self, *a, **k)
+        finally:
+            inside.pop()
+
+    monkeypatch.setattr(matched_cuda, "extract_symbols_plain", refused)
+    monkeypatch.setattr(torch, "cos", guarded(torch.cos))
+    monkeypatch.setattr(torch, "sin", guarded(torch.sin))
+    monkeypatch.setattr(Receiver, "_extract_symbols", traced_extract)
+    rx = Receiver(RxConfig(max_payload_len=128, max_detections=8, freq_bins=1, payload_carrier=carrier), dev)
+    x = _graph_bank(rx, 4, 3)
+    steps = []
+    for _ in range(3):
+        _build.reset_launch_counts()
+        before = trace.counters().get("rx.extract.fused_rows", 0)
+        steps.append(rx.bank_step(x, 0))
+        launches = _build.launch_counts()
+        assert launches["matched"] == 2 and launches["fetch"] == 1, launches
+        assert trace.counters()["rx.extract.fused_rows"] - before == 2 * 4 * 8
     torch.cuda.synchronize()
     assert rx.graph_counts() == {"captured": 1, "replayed": 1, "eager": 1, "evicted": 0}
     for out in steps[1:]:

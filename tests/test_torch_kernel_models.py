@@ -9,7 +9,11 @@ size the kernel takes, so a fault in the tables or the replica permutation
 shows here. The exchange buffers' swizzle is checked free of bank
 conflicts. K3's phase-split model (``phase_split_reference``, the
 kernel's order of sums) is held against the plain version that the CPU
-route runs. K5's model runs BP along the wrapper's warp plan
+route runs, and so is the fused extraction's (``fused_extraction_model``:
+the grid of ``extraction_plan``, the C entry's grid written out here and
+its constants read from the kernel's source, each chunk's clamped start,
+each staged sample derotated with its products rounded apart, K3's sums,
+the scaling, every output written once). K5's model runs BP along the wrapper's warp plan
 (``ldpc_cuda.warp_plan``: lane ownership, per-warp publish slots) and is
 held bit for bit against the plain version; the plan's limits are checked
 against the kernel's source. K2's model copies along the wrapper's thread
@@ -62,8 +66,10 @@ from gr4_packet_modem_tpu_torch.ops.acquire_cuda import (  # noqa: E402
     replica_table_bf16,
     stream_plan,
 )
-from gr4_packet_modem_tpu_torch.ops import crc, fetch_cuda, ldpc, ldpc_cuda  # noqa: E402
-from gr4_packet_modem_tpu_torch.ops.matched_cuda import matched_filter_plain  # noqa: E402
+from gr4_packet_modem_tpu_torch.ops import crc, fetch_cuda, ldpc, ldpc_cuda, matched_cuda  # noqa: E402
+from gr4_packet_modem_tpu_torch.ops.matched_cuda import (  # noqa: E402
+    extract_symbols, extract_symbols_plain, matched_filter_plain,
+)
 from gr4_packet_modem_tpu_torch.utils.stimulus import ldpc_encode_bytes  # noqa: E402
 
 
@@ -215,6 +221,141 @@ def test_k3_phase_split_equals_plain(d, k, sps, s, short):
     zt = torch.from_numpy(z)
     want = matched_filter_plain(zt, zt, torch.from_numpy(taps), sps, s)[0].numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+# the fused extraction's grid (csrc/matched.cu: pm_extract_symbols and
+# block_threads), for the model below
+Q = 9  # consecutive outputs a thread computes (kQ)
+THREADS = 128  # most threads a block (kThreads)
+
+
+def extraction_plan(d: int, num_syms: int, chunk: int) -> dict:
+    """The fused extraction's grid for ``d`` rows of ``num_syms`` symbols in
+    chunks of ``chunk``: blocks of ``threads`` (enough warps for a chunk,
+    at most ``THREADS``), each covering ``block_syms`` = ``Q * threads``
+    consecutive symbols of one chunk of one row; ``blocks_per_chunk`` of
+    them a chunk, ``chunks`` a row; block ``b`` is row ``b // (chunks *
+    blocks_per_chunk)``, chunk ``b // blocks_per_chunk % chunks``, and
+    symbols ``b % blocks_per_chunk * block_syms`` on of that chunk."""
+    want = -(-chunk // Q)
+    threads = THREADS if want >= THREADS else -(-want // 32) * 32
+    per_chunk = -(-chunk // (Q * threads))
+    chunks = -(-num_syms // chunk)
+    return {"threads": threads, "block_syms": Q * threads, "blocks_per_chunk": per_chunk,
+            "chunks": chunks, "blocks": d * chunks * per_chunk}
+
+
+def fused_extraction_model(
+    x: np.ndarray, row_len: int, n_base: np.ndarray, chan: np.ndarray | None, arm: np.ndarray,
+    arm_taps: np.ndarray, freq: np.ndarray, n0: np.ndarray, amp: np.ndarray, sps: int,
+    sym_offset: int, num_syms: int, chunk: int,
+) -> np.ndarray:
+    """The fused extraction kernel's walk (csrc/matched.cu, kFromBank) in
+    float32: block by block of ``extraction_plan``, the chunk's start
+    clamped to the row, the window its written outputs need staged from
+    the bank (zeros past the region), each sample derotated by
+    ``-freq * float32(start + j - n0)`` with every product and sum rounded
+    apart, split by phase, summed over p then q with the row's arm
+    reversed, scaled, written once into ``[D, num_syms]``."""
+    d, k = n_base.shape[0], arm_taps.shape[1]
+    plan = extraction_plan(d, num_syms, chunk)
+    kq, cs = -(-k // sps), plan["block_syms"]
+    per, nch = plan["blocks_per_chunk"], plan["chunks"]
+    r = sps * (chunk - 1) + k
+    f32 = np.float32
+    out = np.zeros((d, num_syms), np.complex64)
+    written = np.zeros((d, num_syms), np.int64)
+    for b in range(plan["blocks"]):
+        row, c, s0 = b // (nch * per), b // per % nch, b % per * cs
+        valid = min(cs, min(chunk, num_syms - c * chunk) - s0)
+        if valid <= 0:
+            continue
+        st = min(max(int(n_base[row]) + sps * (sym_offset + c * chunk) - (k - 1), 0), row_len - r)
+        base = sps * s0
+        i = np.arange(sps * (valid + kq - 1))
+        inside = base + i < r
+        at = (0 if chan is None else int(chan[row]) * row_len) + st + base + np.where(inside, i, 0)
+        v = np.where(inside, x[at], 0).astype(np.complex64)
+        ph = f32(-freq[row]) * (st + base + i - int(n0[row])).astype(f32)
+        cph, sph = np.cos(ph).astype(f32), np.sin(ph).astype(f32)
+        re, im = v.real.astype(f32), v.imag.astype(f32)
+        dr = re * cph - im * sph
+        di = re * sph + im * cph
+        tq = np.zeros(kq * sps, f32)
+        tq[:k] = arm_taps[int(arm[row])][::-1]
+        acc_r = np.zeros(valid, f32)
+        acc_i = np.zeros(valid, f32)
+        for p in range(sps):
+            pr, pi = dr[p::sps], di[p::sps]
+            for q in range(kq):
+                acc_r = acc_r + pr[q : q + valid] * tq[q * sps + p]
+                acc_i = acc_i + pi[q : q + valid] * tq[q * sps + p]
+        cols = slice(c * chunk + s0, c * chunk + s0 + valid)
+        out[row, cols] = (acc_r * f32(amp[row])) + 1j * (acc_i * f32(amp[row]))
+        written[row, cols] += 1
+    assert (written == 1).all()
+    return out
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["header", "chunked_clamped", "one_capture", "run_time_sps", "ragged_last_chunk"],
+)
+def test_fused_extraction_model_equals_plain(case):
+    """The fused extraction's order (derotate each sample once with
+    unfused products, K3's sums over p then q, scale, each chunk's own
+    clamped start) against the plain chain of the CPU route (K2's and K3's
+    plain versions, the derotation between them, the chunks joined and
+    cut): float32 rounding, rtol 1e-5, atol 1e-4. Rows start near the
+    row's end (the clamp holds later chunks at ``row_len - R``) and before
+    its start (the first chunk clamped to 0); starts of both parities."""
+    sps, k, arms = 4, 44, 32
+    chans, row_len, sym_offset, num_syms, chunk = 3, 6000, 192, 700, 64
+    if case == "header":
+        sym_offset, num_syms, chunk = 0, 192, 192
+    elif case == "run_time_sps":
+        sps, k, arms = 2, 13, 5
+    elif case == "ragged_last_chunk":
+        num_syms, chunk = 611, 100
+    rng = np.random.default_rng(len(case))
+    d = 7
+    chan = None if case == "one_capture" else rng.integers(0, chans, d)
+    if chan is None:
+        chans = 1
+    x = (rng.standard_normal(chans * row_len) + 1j * rng.standard_normal(chans * row_len)).astype(np.complex64)
+    n_base = rng.integers(0, row_len, d)
+    n_base[:3] = (3, row_len - 400, row_len - 7)  # clamped at 0, and at the row's end
+    n_base[3] = n_base[3] | 1
+    arm_taps = (0.3 * rng.standard_normal((arms, k))).astype(np.float32)
+    arm = rng.integers(0, arms, d)
+    freq = rng.uniform(-0.05, 0.05, d).astype(np.float32)
+    n0 = n_base - rng.integers(0, 60, d)
+    amp = rng.uniform(0.5, 2.0, d).astype(np.float32)
+    got = fused_extraction_model(x, row_len, n_base, chan, arm, arm_taps, freq, n0, amp,
+                                 sps, sym_offset, num_syms, chunk)
+    args = (torch.from_numpy(x), row_len, torch.from_numpy(n_base),
+            None if chan is None else torch.from_numpy(chan), torch.from_numpy(arm),
+            torch.from_numpy(arm_taps), torch.from_numpy(freq), torch.from_numpy(n0),
+            torch.from_numpy(amp), sps, sym_offset, num_syms, chunk)
+    want = extract_symbols_plain(*args)
+    assert torch.equal(extract_symbols(*args), want)  # the CPU route is the plain chain
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-4)
+
+
+def test_fused_extraction_plan_covers_every_symbol():
+    """The grid at the receiver's shapes: the header pass, the dense
+    payload pass in one chunk, the mixed cell's nine chunks of 2,048 and
+    the u16 envelope's 129; the kernel's block and output constants are
+    the plan's."""
+    src = (Path(matched_cuda.__file__).parents[1] / "csrc" / "matched.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert consts == {"kQ": str(Q), "kThreads": str(THREADS)}
+    for d, s, chunk, want in ((1536, 192, 192, (32, 1, 1)), (1536, 6160, 6160, (128, 6, 1)),
+                              (3584, 16400, 2048, (128, 2, 9)), (2, 262156, 2048, (128, 2, 129))):
+        plan = extraction_plan(d, s, chunk)
+        assert (plan["threads"], plan["blocks_per_chunk"], plan["chunks"]) == want
+        assert plan["blocks"] == d * want[1] * want[2]
+        assert plan["chunks"] * chunk >= s and plan["blocks_per_chunk"] * plan["block_syms"] >= chunk
 
 
 def _header_tables():
