@@ -4,9 +4,11 @@ channel.py``), used by the transceiver and the loopback checks
 
 - ``rotate``: constant carrier frequency offset (rotator.hpp), a
   closed-form phase ramp. The phase of sample n is split as ``n = q*4096 +
-  r`` with the block phase ``w*4096 mod 2*pi`` taken in float64 on the
-  host, so float32 keeps its accuracy over long streams (a plain float32
-  ``w * n`` is off by about 1e-3 rad at n = 6e5);
+  r`` with the block phase ``w*4096 mod 2*pi`` taken in float64, so
+  float32 keeps its accuracy over long streams (a plain float32 ``w * n``
+  is off by about 1e-3 rad at n = 6e5); a negative offset is applied as
+  the conjugate of its mirror, so that ``r * w`` stays small; each row of
+  a bank may have its own offset and phase;
 - ``awgn``: complex white Gaussian noise (noise_source.hpp) from an
   explicit ``torch.Generator`` on the samples' device;
 - ``sfo``: sampling frequency offset through the polyphase arbitrary
@@ -36,21 +38,35 @@ def _mod(a: torch.Tensor, b: float) -> torch.Tensor:
     return torch.where(m < 0, m + b, m)
 
 
-def rotate(x: torch.Tensor, phase_incr: float, phase0: float = 0.0, n0: int = 0) -> torch.Tensor:
+def rotate(x: torch.Tensor, phase_incr, phase0=0.0, n0: int = 0) -> torch.Tensor:
     """Frequency shift: ``y[n] = x[n] * exp(i*(phase0 + w*(n0 + n)))``
-    along the last axis."""
-    n = torch.arange(x.shape[-1], device=x.device) + n0
-    w = float(phase_incr) % _TWO_PI
-    w_block = (w * 4096.0) % _TWO_PI  # host float64
+    along the last axis. ``phase_incr`` (``w``) and ``phase0`` are numbers,
+    or float64 tensors ``[...]`` on ``x``'s device that give each row of
+    ``x`` ``[..., N]`` its own offset and phase (a bank's links); a row's
+    phasors are the scalar form's, bit for bit.
+
+    A negative offset (``w`` in ``(pi, 2*pi)`` after the wrap) is applied as
+    the conjugate of its mirror: phasors of ``2*pi - w`` and ``-phase0``,
+    conjugated. So the in-block phase ``r * w`` stays within ``4096 * pi``
+    of zero for either sign of a small offset; with ``w`` just below
+    ``2*pi`` float32 lost up to 1e-3 rad there (the JAX package's
+    ``rotate`` still does; the port's equals the conjugate of JAX's rotation
+    of ``conj(x)`` by ``-w`` from ``-phase0``)."""
+    dev = x.device
+    w, p0 = (torch.as_tensor(v, dtype=torch.float64, device=dev).remainder(_TWO_PI)
+             for v in (phase_incr, phase0))
+    neg = w > math.pi
+    w = torch.where(neg, _TWO_PI - w, w)
+    p0 = torch.where(neg, (_TWO_PI - p0).remainder(_TWO_PI), p0)
+    w_block = (w * 4096.0).remainder(_TWO_PI)
+    w, w_block, p0 = (v.to(torch.float32)[..., None] for v in (w, w_block, p0))
+    n = torch.arange(x.shape[-1], device=dev) + n0
     q = torch.div(n, 4096, rounding_mode="floor")
     r = n - q * 4096
     two_pi32 = float(np.float32(_TWO_PI))
-    ph = (
-        _mod(q.to(torch.float32) * float(np.float32(w_block)), two_pi32)
-        + r.to(torch.float32) * float(np.float32(w))
-        + float(np.float32(phase0 % _TWO_PI))
-    )
-    return x * torch.complex(torch.cos(ph), torch.sin(ph))
+    ph = _mod(q.to(torch.float32) * w_block, two_pi32) + r.to(torch.float32) * w + p0
+    sin = torch.sin(ph)
+    return x * torch.complex(torch.cos(ph), torch.where(neg[..., None], -sin, sin))
 
 
 def awgn(x: torch.Tensor, amplitude: float, generator: torch.Generator) -> torch.Tensor:

@@ -17,6 +17,10 @@ packet batch:
 6. burst shaping: the leading ramp, and the trailing ramp at each row's own
    end.
 
+A bank of links (``modulate_bank``) frames and shapes the packets of every
+link as one batch, each packet at its link's own GLFSR index, and lays
+each link's bursts back to back into a row of the bank.
+
 Stream mode concatenates sync || data of every packet into one symbol
 stream and interpolates it with the FIR history carried across calls. The
 constant tables are buffers (``models/tables.py``).
@@ -36,6 +40,7 @@ from ..ops.packing import bytes_to_bits, map_symbols, pack_bits
 from ..ops.scramble import keystream_np, scramble_bits
 from ..utils import constants as C
 from ..utils.ragged import PacketBatch, ragged_concat
+from ..utils.trace import count, span
 from .tables import tables_from_numpy, transmitter_tables
 
 __all__ = ["TxConfig", "Transmitter", "make_transmitter"]
@@ -137,10 +142,18 @@ class Transmitter(nn.Module):
         ``packet_index0`` is the first packet's index in the GLFSR
         ramp-down sequence: its state persists across packets in the
         reference, so packet p takes ramp bits ``[18p, 18p+18)``."""
+        rows = torch.arange(packets.batch, device=packets.data.device)
+        return self.burst_symbols_at(packets, packet_index0 + rows)
+
+    def burst_symbols_at(
+        self, packets: PacketBatch, packet_index: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`burst_symbols` with each row's own GLFSR packet index,
+        int64 ``[B]`` (the sequence wraps every ``max_packets_glfsr``
+        packets)."""
         syms, data_end = self._sync_data(packets, self.max_burst_syms)
         dev = syms.device
-        pidx = packet_index0 + torch.arange(syms.shape[0], device=dev)
-        packed = self.ramp_bits_packed[pidx % self.config.max_packets_glfsr]
+        packed = self.ramp_bits_packed[packet_index % self.config.max_packets_glfsr]
         ramp_bits = (packed[:, None] >> torch.arange(C.RAMP_DOWN_BITS, device=dev)) & 1
         ramp_idx = pack_bits(ramp_bits, 2)  # [B, 9]
         # ramp-down symbols at data_end .. data_end + 9, then flush zeros
@@ -155,12 +168,15 @@ class Transmitter(nn.Module):
         """Burst-mode TX: packets -> shaped sample bursts
         ``(samples complex64 [B, max_burst_syms*sps], sample_lens int64 [B])``
         (``packet_index0`` as in :meth:`burst_symbols`)."""
+        return self._shape(*self.burst_symbols(packets, packet_index0))
+
+    def _shape(self, syms: torch.Tensor, sym_lens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Burst symbols -> RRC-interpolated samples with the lead ramp and
+        the trail ramp ending at each burst's end, zeros past it."""
         sps = self.config.samples_per_symbol
-        syms, sym_lens = self.burst_symbols(packets, packet_index0)
         samples = interpolating_fir(syms, self.taps, sps)
         sample_lens = sym_lens * sps
         dev = samples.device
-        # shaping: lead ramp, trail ramp ending at each burst's end, zeros past it
         tl = self.trail_ramp.numel()
         spos = torch.arange(samples.shape[1], device=dev)[None, :]
         tail = spos - (sample_lens[:, None] - tl)
@@ -169,6 +185,41 @@ class Transmitter(nn.Module):
         nl = self.lead_ramp.numel()
         weight[:, :nl] = weight[:, :nl] * self.lead_ramp
         return samples * weight, sample_lens
+
+    def modulate_bank(
+        self,
+        data: torch.Tensor,
+        lengths: torch.Tensor,
+        packet_index: torch.Tensor,
+        offset: torch.Tensor,
+        out_len: int,
+    ) -> torch.Tensor:
+        """Burst-mode TX of a bank of C links, K packets each: ``data``
+        uint8 ``[C, K, max_payload_len]`` and ``lengths`` ``[C, K]`` (user
+        data), framed and shaped as one batch of C*K packets, then each
+        link's K bursts laid back to back from sample ``offset[c]`` of its
+        row (bursts past ``out_len`` are cut). Packet k of link c takes the
+        GLFSR index ``packet_index[c] + k`` (int64 ``[C]``: the packets the
+        link sent before). Returns complex64 ``[C, out_len]``, zeros around
+        the bursts. Spans ``tx.step`` (``.frame``: header, CRC,
+        scrambling, mapping; ``.shape``: FIR and ramps; ``.layout``: the
+        bursts into the rows); counters ``tx.packets`` (C*K) and
+        ``tx.samples`` (C*out_len), a call."""
+        c, k, width = data.shape
+        dev = data.device
+        with span("tx.step", dev):
+            with span("tx.step.frame"):
+                index = (packet_index.to(torch.int64)[:, None] + torch.arange(k, device=dev)).reshape(-1)
+                syms, sym_lens = self.burst_symbols_at(
+                    PacketBatch(data.reshape(c * k, width), lengths.reshape(-1)), index)
+            with span("tx.step.shape"):
+                samples, sample_lens = self._shape(syms, sym_lens)
+            del syms
+            with span("tx.step.layout"):
+                bank = ragged_concat(samples.view(c, k, -1), sample_lens.view(c, k), out_len, offset=offset)[0]
+        count("tx.packets", c * k)
+        count("tx.samples", c * out_len)
+        return bank
 
     # ------------------------------------------------------------ stream mode
 

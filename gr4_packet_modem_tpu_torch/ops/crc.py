@@ -205,7 +205,7 @@ def crc_bytes_be(crc: torch.Tensor) -> torch.Tensor:
     """CRC words ``[B]`` -> their four big-endian bytes, uint8 ``[B, 4]``
     (the order of CrcAppend with swap_endianness=false,
     crc_append.hpp:175-183)."""
-    shifts = torch.tensor([24, 16, 8, 0], device=crc.device)
+    shifts = torch.arange(24, -1, -8, device=crc.device)  # made on the device: no host copy, no wait
     return ((crc.to(torch.int64)[:, None] >> shifts) & 0xFF).to(torch.uint8)
 
 

@@ -4,7 +4,8 @@ A batch of packets is a dense padded tensor ``[B, max_len]`` plus a length
 vector ``[B]`` (and the packet types), the counterpart of the reference's
 ``Pdu<T>`` items (pdu.hpp:14-19). Concatenating the rows' valid prefixes
 into one stream is a parallel search-and-gather: each output position finds
-its source row by a binary search over the rows' start offsets.
+its source row by a binary search over the rows' start offsets. A bank of
+links concatenates link by link, each from its own offset, in one call.
 """
 
 from __future__ import annotations
@@ -68,16 +69,24 @@ def ragged_concat_lengths(lengths: torch.Tensor) -> torch.Tensor:
 
 
 def ragged_concat(
-    data: torch.Tensor, lengths: torch.Tensor, out_len: int, fill=0
+    data: torch.Tensor, lengths: torch.Tensor, out_len: int, fill=0, offset: torch.Tensor | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Concatenate the valid prefixes of the rows of ``data`` ``[B, L]``
-    into one vector. Returns ``(out [out_len], total_len)``; entries past
-    ``total_len`` are ``fill``. Rows of length 0 are skipped (the search
-    takes the last row starting at or before a position)."""
+    """Concatenate the valid prefixes of the rows of ``data`` ``[..., B, L]``
+    into one stream ``[..., out_len]`` for each index of the leading axes
+    (a bank's links: row ``k`` of link ``c`` is ``data[c, k]``, of
+    ``lengths[c, k]`` items). Returns ``(out, total_len [...])``; entries
+    past a stream's ``total_len`` are ``fill``. Rows of length 0 are
+    skipped (the search takes the last row starting at or before a
+    position). ``offset`` (int64 ``[...]``, None for 0) places each stream
+    at that output position, ``fill`` before it."""
     lengths = lengths.to(torch.int64)
-    starts = torch.cat([lengths.new_zeros(1), torch.cumsum(lengths, 0)])
-    total = starts[-1]
-    pos = torch.arange(out_len, device=data.device)
-    row = (torch.searchsorted(starts, pos, right=True) - 1).clamp(0, data.shape[0] - 1)
-    off = (pos - starts[row]).clamp(0, data.shape[1] - 1)
-    return torch.where(pos < total, data[row, off], data.new_full((), fill)), total
+    lead, (b, width) = data.shape[:-2], data.shape[-2:]
+    starts = torch.cat([lengths.new_zeros(*lead, 1), torch.cumsum(lengths, -1)], dim=-1)
+    total = starts[..., -1]
+    pos = torch.arange(out_len, device=data.device).expand(*lead, out_len)
+    pos = pos.contiguous() if offset is None else pos - offset.to(torch.int64)[..., None]
+    row = (torch.searchsorted(starts, pos, right=True) - 1).clamp(0, b - 1)
+    off = (pos - starts.gather(-1, row)).clamp(0, width - 1)
+    items = data.reshape(*lead, b * width).gather(-1, row * width + off)
+    inside = (pos >= 0) & (pos < total[..., None])
+    return torch.where(inside, items, data.new_full((), fill)), total

@@ -1,8 +1,10 @@
 """Spans of the port's own work: where its host time and device time go.
 
 Tracing is off by default. :func:`span` is a context manager placed where
-the work happens: the receiver's stages (``rx.*``) and the staging and
-dispatch of ``StreamingBank`` (``stream.*``). While tracing is off it
+the work happens: the receiver's stages (``rx.*``), the staging and
+dispatch of ``StreamingBank`` (``stream.*``), the bank form of the
+transmitter (``tx.step``, with ``.frame``, ``.shape`` and ``.layout``) and
+the transceiver bank's channel (``channel.impair``). While tracing is off it
 returns one shared object that does nothing: no allocation, no profiler
 annotation, no CUDA event, no clock read. While it is on, a span
 
@@ -47,7 +49,9 @@ symbol extractions' chunks, each its own clamp of the region to the row),
 ``rx.extract.fused_rows`` (the rows each launch of the fused extraction
 kernel extracted, ``ops/matched_cuda.py::extract_symbols``: on the card 2 x
 D a bank step, both passes of every step) and ``rx.payload.slot_symbols``
-(rows times symbols the payload pass decoded). A step replayed from
+(rows times symbols the payload pass decoded); the transmitter's bank
+form counts ``tx.packets`` (the packets it framed) and ``tx.samples`` (the
+bank samples it wrote), once a call. A step replayed from
 CUDA graphs adds what the eager step adds. :func:`counters` reads them,
 and :func:`totals` returns them under ``"counters"``.
 """

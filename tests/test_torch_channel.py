@@ -2,7 +2,13 @@
 
 ``rotate`` within 1e-5 of JAX's (float32 cos/sin of the same split phase)
 at stream offsets 0 and 10**6, and accurate to 5e-3 rad over 2**20
-samples as tests/test_costas_channel.py requires of JAX's; the resampler's
+samples as tests/test_costas_channel.py requires of JAX's. A negative
+offset is the port's conjugated mirror (``rotate``'s docstring), held to
+the conjugate of JAX's rotation of ``conj(x)`` by ``-w`` from ``-phase0``,
+and accurate to 5e-4 rad at -0.006 rad/sample over 2**20 samples, where
+JAX's loses ~3e-3;
+a bank's per-row offsets and phases give each row the scalar call's
+samples bit for bit; the resampler's
 prototype ``pfb_arb_taps`` bit for bit; ``sfo`` within 1e-4 abs of JAX's
 on a unit-power stream (the same float32 time base, sums in another
 order). torch's generators and JAX's differ, so ``awgn`` is held to its
@@ -31,7 +37,10 @@ def _unit_stream(n, seed):
 @pytest.mark.parametrize("w", [0.005, -0.02, 7.5])
 def test_rotate_matches_jax(n0, w):
     x = _unit_stream(1 << 16, 1)
-    want = np.asarray(jchannel.rotate(jnp.asarray(x), w, phase0=0.3, n0=n0))
+    if w % (2 * np.pi) > np.pi:  # a negative offset: the conjugated mirror
+        want = np.conj(np.asarray(jchannel.rotate(jnp.asarray(np.conj(x)), -w, phase0=-0.3, n0=n0)))
+    else:
+        want = np.asarray(jchannel.rotate(jnp.asarray(x), w, phase0=0.3, n0=n0))
     got = channel.rotate(torch.from_numpy(x), w, phase0=0.3, n0=n0)
     assert got.dtype == torch.complex64
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
@@ -43,6 +52,37 @@ def test_rotate_phase_accuracy():
     expected = np.exp(1j * w * np.arange(n))
     err = np.angle(y[-1000:] * np.conj(expected[-1000:]))
     assert np.abs(err).max() < 5e-3
+
+
+def test_rotate_negative_offset_accuracy():
+    n, w = 1 << 20, -0.006
+    y = channel.rotate(torch.ones(n, dtype=torch.complex64), w, phase0=-2.0).numpy()
+    err = np.angle(y * np.conj(np.exp(1j * (-2.0 + w * np.arange(n)))))
+    assert np.abs(err).max() < 5e-4
+
+
+def test_rotate_rows_equal_scalar():
+    """Per-row offsets and phases (a bank's links, both signs, one offset
+    past 2*pi) against the scalar call on each row, bit for bit, at stream
+    offsets 0 and 10**6. One thread: the CPU's vector and scalar sin and
+    cos differ in the last bit, and threads cut rows where they like."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _rows_equal_scalar()
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _rows_equal_scalar():
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(np.stack([_unit_stream(1 << 14, s) for s in range(5)]))
+    w = np.array([0.006, -0.006, -0.004, 0.0, 7.5])
+    p = rng.uniform(-np.pi, np.pi, 5)
+    for n0 in (0, 10**6):
+        got = channel.rotate(x, torch.from_numpy(w), torch.from_numpy(p), n0=n0)
+        for i in range(5):
+            assert torch.equal(got[i], channel.rotate(x[i], float(w[i]), float(p[i]), n0=n0)), (n0, i)
 
 
 def test_pfb_arb_taps_bit_equal():
