@@ -26,7 +26,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    inputs. The recursions
    K4 and K5 are also timed at B=32 (one warp) and given a chain floor: the
    cycles of their step bodies run by one warp on registers, over the SM
-   clock that ``nvidia-smi`` reads. The fused extraction
+   clock that ``nvidia-smi`` reads. K4 with slots that hold no detection
+   (``costas_mask_rows``), at the dense and mixed cells' payload and
+   header shapes: the locked loop's symbols, the same with the empty
+   slots' rows scaled by 1e9 (as the receiver hands them over) unmasked,
+   and those rows masked off, the masked call bit-identical to the masked
+   plain route and, on its active rows, to the clean call, and
+   ``skipped_rows`` grown by the masked rows; all three timed. The fused extraction
    (``pm_extract_symbols``) at the header pass's, the dense cells' payload
    and the mixed cell's payload shapes (nine chunks) on a random bank laid
    out as a bank step lays its rows, within K3's tolerance of the plain
@@ -585,6 +591,70 @@ def crc_inputs(torch, dev, gen, d: int, max_len: int, pool, share: float):
     return (sym, scale, torch.from_numpy(ks).to(dev), torch.from_numpy(lens).to(dev), *tables), lens
 
 
+# K4's masked rows: (label, B, S, offset, inactive(row)) at the cells'
+# shapes: the dense cells' 24 slots a channel with 2 empty, the mixed
+# cell's 56 with the last 17 empty (its ~17 without a packet)
+COSTAS_MASKS = (
+    ("dense payload", 1536, 6160, 192, lambda i: i % 24 >= 22),
+    ("mixed payload", 3584, 16400, 192, lambda i: i % 56 >= 39),
+    ("dense header", 1536, 192, 0, lambda i: i % 24 >= 22),
+    ("mixed header", 3584, 192, 0, lambda i: i % 56 >= 39),
+)
+
+
+def costas_mask_rows(torch, card: str) -> list:
+    """K4 with slots that hold no detection, at the cells' shapes: the
+    locked loop's symbols (``clean``); the same with the empty slots' rows
+    scaled by 1e9 as the receiver hands them over, unmasked (``scaled``:
+    their loops run away into cosf's slow reduction); and those rows
+    masked off (``masked``: the receiver's call). The masked call's active
+    rows bit-identical to the clean call's, its inactive rows zeros with
+    their state as it came, and all of it bit-identical to the plain route
+    with the same mask; ``skipped_rows`` grown by the inactive rows. Each
+    timed as ``timed`` times the kernels, the L2 evicted before each call."""
+    from gr4_packet_modem_tpu_torch.ops.costas_cuda import costas_track, costas_track_plain, skipped_rows
+    from gr4_packet_modem_tpu_torch.utils.stimulus import costas_symbols
+
+    dev = torch.device("cuda")
+    rows = []
+    for label, b, s, offset, inactive in COSTAS_MASKS:
+        sym, ph0, fr0 = (torch.from_numpy(a).to(dev) for a in costas_symbols(b, s, offset, seed=11 + s))
+        active = torch.from_numpy(np.array([not inactive(i) for i in range(b)])).to(dev)
+        scaled = torch.where(active[:, None], sym, sym * 1e9)
+        idle = int((~active).sum())
+        clean = costas_track(sym, ph0, fr0, offset=offset)
+        before = skipped_rows(dev)
+        masked = costas_track(scaled, ph0, fr0, offset=offset, active=active)
+        check(skipped_rows(dev) - before == idle, f"costas {label}: skipped_rows did not grow by {idle}")
+        check(all(torch.equal(m[active], c[active]) for m, c in zip(masked, clean)),
+              f"costas {label}: the masked call's active rows differ from the clean call's")
+        check(not bool(masked[0][~active].any()) and torch.equal(masked[1][~active], ph0[~active])
+              and torch.equal(masked[2][~active], fr0[~active]),
+              f"costas {label}: inactive rows not zeros with their state as it came")
+        plain = costas_track_plain(scaled, ph0, fr0, offset, active)
+        check(all(torch.equal(m, p) for m, p in zip(masked, plain)),
+              f"costas {label}: masked kernel not bit-identical to the masked plain route")
+        del plain
+        times = {
+            "clean": timed(torch, lambda: costas_track(sym, ph0, fr0, offset=offset)),
+            "scaled": timed(torch, lambda: costas_track(scaled, ph0, fr0, offset=offset)),
+            "masked": timed(torch, lambda: costas_track(scaled, ph0, fr0, offset=offset, active=active)),
+        }
+        bms, by = bound(2 * b * s * 8 + 4 * b * 4, b * s * (15 + 40))
+        ms = {k: t["ms"] for k, t in times.items()}
+        shape = f"B={b} S={s} offset={offset}, {idle} rows 1e9-scaled"
+        log(f"  costas {label} {shape}: clean {ms['clean']:.4f} ms, scaled unmasked {ms['scaled']:.4f} ms "
+            f"({ms['scaled'] / ms['clean']:.2f} x), masked {ms['masked']:.4f} ms "
+            f"({ms['masked'] / ms['clean']:.3f} x clean); masked bit-identical to the plain route and, on "
+            f"its active rows, to clean; bound {bms:.4f} ms ({by}, {100 * bms / ms['masked']:.2f} % of "
+            f"masked)  [{card}]")
+        rows.append({"name": "costas_masked", "label": label, "shape": shape, "inactive_rows": idle,
+                     "bound_ms": bms, "bound_by": by, **{f"{k}_ms": v for k, v in ms.items()},
+                     **{f"{k}_timer": t["timer"] for k, t in times.items()}})
+        del sym, scaled, clean, masked
+    return rows
+
+
 def kernel_checks(torch, card: str, chain) -> dict:
     """Each kernel against its plain version at the chain's shapes; the
     time of each, of its plain version and, where one PyTorch call computes
@@ -853,6 +923,7 @@ def _kernel_checks(torch, card: str, chain) -> dict:
         record("costas", shape, err, k, pms, None,
                2 * d * s * 8 + 4 * d * 4, d * s * (15 + 40), s == 192, extra)
         del sym, ko, po
+    rows.extend(costas_mask_rows(torch, card))
 
     # K5 LDPC BP: noisy codewords from -6 to +4 dB, some not converging
     rng = np.random.default_rng(7)

@@ -1,6 +1,6 @@
 // K4 Costas loop: the exact per-packet carrier-recovery recursion over the
 // receiver's positional schedule (costas_step.cuh), from packet symbol
-// `offset` on.
+// `offset` on, for the rows a per-row mask marks active.
 //
 // Replaces gr4_packet_modem_tpu/ops/costas_pallas.py::costas_track_pallas
 // (kernel _make_kernel). The TPU kernel advanced 1024 packets per step in one
@@ -22,6 +22,19 @@
 // warp writes the tile back to the [B, S] output, coalesced along S. Ragged
 // edges (B not a multiple of 32, S not a multiple of 32) are masked; the
 // schedule's switch points fall anywhere in a tile.
+//
+// The mask (`active`, one byte a row; null: every row active) is the
+// detection's valid flag. A slot with no detection reaches K4 scaled by
+// about 1e9 (its amplitude is 0), its loop error is then about 1e9 and its
+// phase runs away past the one 2 pi wrap a step; cosf/sinf of |x| above
+// ~1e5 take the slow Payne-Hanek reduction on every later symbol, and a
+// warp waits for its slowest lane. So an inactive row steps no symbol: its
+// output row is zeros and its end state its start state. A warp with no
+// active row writes its zeros and stages no tile; in a warp with some, the
+// inactive rows' tiles are still staged, and their lanes write zeros into
+// them in place of stepping. Active rows run the same step as without a
+// mask, bit for bit. Each warp adds its count of inactive rows, one atomic
+// add, to `skipped` (a device counter; null: not counted).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -70,18 +83,40 @@ __device__ __forceinline__ void store_tile(const Tile& t, float2* out,
   for (int r = 0; r < rows; ++r) out[(row0 + r) * s + i0 + lane] = t[r][lane];
 }
 
+// Zeros over rows [0, rows) of the warp's packets, every symbol: lane l
+// writes columns l, l + 32, ..., coalesced along S.
+__device__ __forceinline__ void store_zeros(float2* out, int64_t row0, int rows, int64_t s,
+                                            int lane) {
+  const float2 zero = make_float2(0.0f, 0.0f);
+  for (int r = 0; r < rows; ++r)
+    for (int64_t i = lane; i < s; i += kWarp) out[(row0 + r) * s + i] = zero;
+}
+
 __global__ void __launch_bounds__(kWarp)
     costas_kernel(const float2* __restrict__ sym, float2* __restrict__ out,
                   const float* __restrict__ ph0, const float* __restrict__ fr0,
-                  float* __restrict__ ph_end, float* __restrict__ fr_end, int b,
-                  int s, int offset) {
+                  float* __restrict__ ph_end, float* __restrict__ fr_end,
+                  const uint8_t* __restrict__ active,
+                  unsigned long long* __restrict__ skipped, int b, int s, int offset) {
   __shared__ __align__(16) Tile ring[kStages];
   const int lane = threadIdx.x;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kWarp;
   const int rows = min(kWarp, static_cast<int>(b - row0));
   const bool mine = lane < rows;
+  const bool live = mine && (active == nullptr || active[row0 + lane] != 0);
+  const unsigned idle = __ballot_sync(0xffffffffu, mine && !live);
   float ph = mine ? ph0[row0 + lane] : 0.0f;
   float fr = mine ? fr0[row0 + lane] : 0.0f;
+  if (skipped != nullptr && lane == 0 && idle != 0u)
+    atomicAdd(skipped, static_cast<unsigned long long>(__popc(idle)));
+  if (__popc(idle) == rows) {  // no active row: zeros, and the state as it came
+    store_zeros(out, row0, rows, s, lane);
+    if (mine) {
+      ph_end[row0 + lane] = ph;
+      fr_end[row0 + lane] = fr;
+    }
+    return;
+  }
   const int tiles = (s + kTile - 1) / kTile;
   // one commit group per tile, empty past the end, so that waiting for
   // all but the kStages - 1 newest groups always means "this tile is in"
@@ -97,9 +132,11 @@ __global__ void __launch_bounds__(kWarp)
     const int cols = min(kTile, s - i0);
     wait_pending<kStages - 1>();
     __syncwarp();
-    if (mine) {
+    if (live) {
       for (int j = 0; j < cols; ++j)
         buf[lane][j] = pm_costas::step(buf[lane][j], offset + i0 + j, ph, fr);
+    } else if (mine) {
+      for (int j = 0; j < cols; ++j) buf[lane][j] = make_float2(0.0f, 0.0f);
     }
     __syncwarp();
     store_tile(buf, out, row0, rows, s, i0, cols, lane);
@@ -119,13 +156,16 @@ __global__ void __launch_bounds__(kWarp)
 
 extern "C" int pm_costas_track(const void* sym, void* out, const void* ph0,
                                const void* fr0, void* ph_end, void* fr_end,
-                               int b, int s, int offset, void* stream) {
+                               const void* active, void* skipped, int b, int s,
+                               int offset, void* stream) {
   // one warp a block: B = 1536 packets spread over 48 SMs, each chain
   // alone on its scheduler
   costas_kernel<<<(b + kWarp - 1) / kWarp, kWarp, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(sym), static_cast<float2*>(out),
       static_cast<const float*>(ph0), static_cast<const float*>(fr0),
-      static_cast<float*>(ph_end), static_cast<float*>(fr_end), b, s, offset);
+      static_cast<float*>(ph_end), static_cast<float*>(fr_end),
+      static_cast<const uint8_t*>(active), static_cast<unsigned long long*>(skipped), b, s,
+      offset);
   return static_cast<int>(cudaGetLastError());
 }

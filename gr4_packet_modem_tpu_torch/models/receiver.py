@@ -142,7 +142,9 @@ class RxConfig:
     payload_carrier: str = "costas"
     vv_block: int = 64                # V&V averaging block (symbols)
     # keep the corrected payload symbols in PayloadResult.symbols (for the
-    # symbol taps of StreamingReceiver, packet_receiver.hpp:159-189)
+    # symbol taps of StreamingReceiver, packet_receiver.hpp:159-189); with
+    # the Costas carrier a slot with no detection holds zeros there, as it
+    # does in the header symbols
     keep_payload_symbols: bool = False
 
     def __post_init__(self):
@@ -404,8 +406,11 @@ class Receiver(nn.Module):
             with span("rx.headers.costas"):
                 # wipe off the syncword modulation -> pure pilot
                 syms[:, : C.SYNCWORD_LEN] *= self.sync_bipolar
+                # a slot with no detection is not tracked (its rows read
+                # zeros): its 1e9 scale would run its loop away
                 corrected, ph_end, fr_end = costas_track(
-                    syms, phase0.contiguous(), torch.zeros_like(phase0), offset=0
+                    syms, phase0.contiguous(), torch.zeros_like(phase0), offset=0,
+                    active=det.valid,
                 )
             with span("rx.headers.ldpc"):
                 hdr_syms = corrected[:, C.SYNCWORD_LEN :]  # [D, 128]
@@ -578,7 +583,8 @@ class Receiver(nn.Module):
                     corrected = self._vv_track(syms, hdr.phase, hdr.freq)
                 else:
                     corrected, _, _ = costas_track(
-                        syms, hdr.phase, hdr.freq, offset=_HEADER_REGION_SYMS
+                        syms, hdr.phase, hdr.freq, offset=_HEADER_REGION_SYMS,
+                        active=det.valid,
                     )
             with span("rx.payload.crc"):
                 plen = hdr.packet_length

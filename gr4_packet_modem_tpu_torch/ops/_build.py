@@ -63,8 +63,8 @@ _SIGNATURES = {
     # x, n_base, chan, n0, arm, arm_taps, freq, amp, out, row_len, ntaps, sps, sym_offset,
     # num_syms, chunk, d, stream
     "pm_extract_symbols": [_P] * 9 + [_I64, _I, _I, _I, _I, _I, _I, _P],
-    # sym, out, ph0, fr0, ph_end, fr_end, b, s, offset, stream
-    "pm_costas_track": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # sym, out, ph0, fr0, ph_end, fr_end, active, skipped, b, s, offset, stream
+    "pm_costas_track": [_P] * 8 + [_I, _I, _I, _P],
     # llrs, totals, chk_vars, var_edges, b, m, dmax, n, vdeg, iters, alpha, stream
     "pm_ldpc_totals": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # sym, llr_scale, ks, plen, tables, init_lut, final_xor, payload, words, d, max_len,

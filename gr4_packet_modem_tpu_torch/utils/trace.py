@@ -48,7 +48,10 @@ receiver counts the work its shapes set: ``rx.extract.chunks`` (the
 symbol extractions' chunks, each its own clamp of the region to the row),
 ``rx.extract.fused_rows`` (the rows each launch of the fused extraction
 kernel extracted, ``ops/matched_cuda.py::extract_symbols``: on the card 2 x
-D a bank step, both passes of every step) and ``rx.payload.slot_symbols``
+D a bank step, both passes of every step), ``rx.costas.rows`` (the rows
+handed to the Costas loop, ``ops/costas_cuda.py::costas_track``, on
+either route: 2 x D a Costas bank step, D with the V&V carrier) and
+``rx.payload.slot_symbols``
 (rows times symbols the payload pass decoded); the transmitter's bank
 form counts ``tx.packets`` (the packets it framed) and ``tx.samples`` (the
 bank samples it wrote), once a call. A step replayed from

@@ -13,7 +13,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from gr4_packet_modem_tpu_torch.ops import _build, ldpc  # noqa: E402
-from gr4_packet_modem_tpu_torch.ops.costas_cuda import costas_track, costas_track_plain  # noqa: E402
+from gr4_packet_modem_tpu_torch.ops.costas_cuda import (  # noqa: E402
+    costas_track, costas_track_plain, skipped_rows,
+)
 from gr4_packet_modem_tpu_torch.ops.crc import crc32_ref, crc32_tables, payload_crc, payload_crc_plain  # noqa: E402
 from gr4_packet_modem_tpu_torch.ops.fetch_cuda import fetch_regions, fetch_regions_plain  # noqa: E402
 from gr4_packet_modem_tpu_torch.ops.ldpc_cuda import ldpc_totals  # noqa: E402
@@ -102,6 +104,70 @@ def test_costas(dev, b, s, offset):
     assert out.shape == (b, s) and out.is_contiguous() and ref.is_contiguous()
     assert torch.equal(out, ref)
     assert torch.equal(ph, ph_ref) and torch.equal(fr, fr_ref)
+
+
+def _masked_costas(dev, b, s, offset, inactive, seed):
+    """The locked loop's symbols for ``b`` rows, the ``inactive`` ones
+    scaled by 1e9 as a slot with no detection comes to K4, and the mask."""
+    from gr4_packet_modem_tpu_torch.utils.stimulus import costas_symbols
+
+    sym, ph0, fr0 = (torch.from_numpy(a).to(dev) for a in costas_symbols(b, s, offset, seed=seed))
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    active[inactive] = False
+    sym[~active] *= 1e9
+    return sym, ph0, fr0, active
+
+
+# (B, S, offset, inactive rows): the dense cells' payload pass, 2 of every
+# 24 slots empty; the mixed cell's, the last 17 of every 56; a ragged B
+# with two whole warps (rows 64-127) and scattered rows inactive
+MASKS = {
+    "dense": (1536, 6160, 192, [i for i in range(1536) if i % 24 >= 22]),
+    "mixed": (3584, 16400, 192, [i for i in range(3584) if i % 56 >= 39]),
+    "ragged": (1000, 700, 0, [*range(64, 128), *range(5, 1000, 37)]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MASKS))
+def test_costas_masked_matches_plain(dev, name):
+    """K4 with a row mask against the plain route with the same mask, bit
+    for bit: the active rows tracked, the inactive ones (scaled by 1e9)
+    zeros with their state as it came; ``skipped_rows`` grows by the
+    inactive rows."""
+    b, s, offset, inactive = MASKS[name]
+    sym, ph0, fr0, active = _masked_costas(dev, b, s, offset, inactive, seed=b + s)
+    before = skipped_rows(dev)
+    out, ph, fr = costas_track(sym, ph0, fr0, offset=offset, active=active)
+    assert skipped_rows(dev) - before == len(set(inactive))
+    ref, ph_ref, fr_ref = costas_track_plain(sym, ph0, fr0, offset, active)
+    assert torch.equal(out, ref) and torch.equal(ph, ph_ref) and torch.equal(fr, fr_ref)
+    assert not bool(out[~active].any()) and bool(out[active].abs().gt(0).all())
+
+
+def test_costas_masked_in_a_cuda_graph(dev):
+    """K4 with a mask captured into a CUDA graph: each replay, with the
+    symbols and the mask changed in place between replays, is bit-identical
+    to the plain route on the inputs of that moment, and adds that moment's
+    inactive rows to ``skipped_rows``."""
+    b, s, offset, inactive = MASKS["ragged"]
+    sym, ph0, fr0, active = _masked_costas(dev, b, s, offset, inactive, seed=3)
+    costas_track(sym, ph0, fr0, offset=offset, active=active)  # the library and counter outside
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = costas_track(sym, ph0, fr0, offset=offset, active=active)
+    for i in range(3):
+        if i:
+            fresh = _masked_costas(dev, b, s, offset, list(range(i, b, 5 + i)), seed=10 + i)
+            for t, f in zip((sym, ph0, fr0, active), fresh):
+                t.copy_(f)
+        torch.cuda.synchronize()
+        before = skipped_rows(dev)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert skipped_rows(dev) - before == int((~active).sum())
+        for got, want in zip(out, costas_track_plain(sym, ph0, fr0, offset, active)):
+            assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("b", [1, 300, 1537])  # one warp and block a codeword
@@ -1038,6 +1104,33 @@ def test_bank_step_graphs_extract_in_one_launch_a_pass(dev, carrier, monkeypatch
         assert launches["matched"] == 2 and launches["fetch"] == 1, launches
         assert trace.counters()["rx.extract.fused_rows"] - before == 2 * 4 * 8
     torch.cuda.synchronize()
+    assert rx.graph_counts() == {"captured": 1, "replayed": 1, "eager": 1, "evicted": 0}
+    for out in steps[1:]:
+        _same_step(out, steps[0])
+    assert int(steps[-1][2].accepted.sum()) == 4 * 3
+
+
+def test_bank_step_graphs_skip_empty_slots_in_k4(dev):
+    """A graphed Costas ``bank_step`` (eager, captured, replayed) hands K4
+    every row twice a step (``rx.costas.rows`` 2 x D) and K4 skips the
+    slots with no detection in both passes (``skipped_rows`` 2 x the
+    invalid slots), replayed steps included; the replayed step
+    bit-identical to the eager one."""
+    from gr4_packet_modem_tpu_torch.models.receiver import Receiver, RxConfig
+    from gr4_packet_modem_tpu_torch.utils import trace
+
+    rx = Receiver(RxConfig(max_payload_len=128, max_detections=8, freq_bins=1, payload_carrier="costas"), dev)
+    x = _graph_bank(rx, 4, 3)
+    steps = []
+    for _ in range(3):
+        _build.reset_launch_counts()
+        rows, skipped = trace.counters().get("rx.costas.rows", 0), skipped_rows(dev)
+        steps.append(rx.bank_step(x, 0))
+        assert _build.launch_counts()["costas"] == 2
+        assert trace.counters()["rx.costas.rows"] - rows == 2 * 4 * 8
+        invalid = int((~steps[-1][0].valid).sum())
+        assert 0 < invalid < 4 * 8
+        assert skipped_rows(dev) - skipped == 2 * invalid
     assert rx.graph_counts() == {"captured": 1, "replayed": 1, "eager": 1, "evicted": 0}
     for out in steps[1:]:
         _same_step(out, steps[0])

@@ -28,7 +28,9 @@ from gr4_packet_modem_tpu.ops.packing import pack_bits as j_pack_bits  # noqa: E
 from gr4_packet_modem_tpu.ops.scramble import keystream as j_keystream  # noqa: E402
 from gr4_packet_modem_tpu_torch.ops import ldpc  # noqa: E402
 from gr4_packet_modem_tpu_torch.ops.costas import costas_run, costas_segments  # noqa: E402
-from gr4_packet_modem_tpu_torch.ops.costas_cuda import costas_track  # noqa: E402
+from gr4_packet_modem_tpu_torch.ops.costas_cuda import (  # noqa: E402
+    costas_track, costas_track_plain, skipped_rows,
+)
 from gr4_packet_modem_tpu_torch.ops.crc import crc32_compute, crc32_tables  # noqa: E402
 from gr4_packet_modem_tpu_torch.ops.fetch_cuda import fetch_regions  # noqa: E402
 from gr4_packet_modem_tpu_torch.ops.ldpc_cuda import ldpc_totals  # noqa: E402
@@ -36,6 +38,7 @@ from gr4_packet_modem_tpu_torch.ops.matched_cuda import matched_filter  # noqa: 
 from gr4_packet_modem_tpu_torch.ops.packing import pack_bits  # noqa: E402
 from gr4_packet_modem_tpu_torch.ops.scramble import keystream  # noqa: E402
 from gr4_packet_modem_tpu_torch.models.tables import tables_from_numpy  # noqa: E402
+from gr4_packet_modem_tpu_torch.utils import trace  # noqa: E402
 
 LENGTHS = [1, 17, 128, 1536]
 
@@ -154,6 +157,58 @@ def test_costas_matches_scan_and_pallas(b, s, offset):
         np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5)
         np.testing.assert_allclose(ph.numpy(), np.asarray(want_ph), atol=1e-5)
     np.testing.assert_allclose(fr.numpy(), np.asarray(fr_ref), atol=1e-6)
+
+
+def _masked_costas_inputs(b, s, seed):
+    """Noisy symbols and loop state for ``b`` rows, every third row
+    inactive, and inactive row 1 scaled by 1e9 as a slot with no detection
+    comes to K4."""
+    rng = np.random.default_rng(seed)
+    syms = (rng.standard_normal((b, s)) + 1j * rng.standard_normal((b, s))).astype(np.complex64)
+    syms[1] *= np.float32(1e9)
+    ph0 = rng.uniform(-np.pi, np.pi, b).astype(np.float32)
+    fr0 = rng.uniform(-0.01, 0.01, b).astype(np.float32)
+    active = np.arange(b) % 3 != 1
+    return (torch.from_numpy(syms), torch.from_numpy(ph0), torch.from_numpy(fr0),
+            torch.from_numpy(active))
+
+
+@pytest.mark.parametrize("b,s,offset", [(7, 600, 192), (32, 192, 0)])
+def test_costas_track_plain_masked_rows(b, s, offset):
+    """With ``active``, the active rows are bit-identical to the unmasked
+    call and the inactive ones (the 1e9-scaled one too) are zeros with
+    their state as it came; ``active=None`` is the recursion as it was."""
+    sym, ph0, fr0, active = _masked_costas_inputs(b, s, seed=b + s)
+    want = costas_run(sym, ph0, fr0, *costas_segments(s, "cpu", offset=offset))
+    full = costas_track_plain(sym, ph0, fr0, offset)
+    for g, w in zip(full, want):
+        assert torch.equal(g, w)
+    # the 1e9-scaled row runs away unmasked: its phase leaves [-pi, pi)
+    assert not bool(full[1][1].abs() <= np.pi)
+    out, ph, fr = costas_track_plain(sym, ph0, fr0, offset, active)
+    assert out.is_contiguous() and out.shape == (b, s)
+    assert torch.equal(out[active], full[0][active])
+    assert torch.equal(ph[active], full[1][active]) and torch.equal(fr[active], full[2][active])
+    assert torch.equal(out[~active], torch.zeros_like(out[~active]))
+    assert torch.equal(ph[~active], ph0[~active]) and torch.equal(fr[~active], fr0[~active])
+
+
+def test_costas_track_counts_rows_and_skips():
+    """``costas_track`` on CPU tensors: the plain route's outputs, the rows
+    handed to it in ``rx.costas.rows`` and the inactive ones in
+    ``skipped_rows``, with and without a mask; a mask of another dtype or
+    shape raises."""
+    sym, ph0, fr0, active = _masked_costas_inputs(10, 300, seed=5)
+    rows0, skipped0 = trace.counters().get("rx.costas.rows", 0), skipped_rows("cpu")
+    got = costas_track(sym, ph0, fr0, offset=192, active=active)
+    for g, w in zip(got, costas_track_plain(sym, ph0, fr0, 192, active)):
+        assert torch.equal(g, w)
+    costas_track(sym, ph0, fr0, offset=192)
+    assert trace.counters()["rx.costas.rows"] - rows0 == 20
+    assert skipped_rows("cpu") - skipped0 == int((~active).sum()) == 3
+    for bad in (active.to(torch.uint8), active[:-1]):
+        with pytest.raises(ValueError, match="active"):
+            costas_track(sym, ph0, fr0, active=bad)
 
 
 def test_costas_segments_match():

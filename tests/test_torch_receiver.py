@@ -142,6 +142,32 @@ def test_bank_step_decodes_all_packets(bank):
         np.testing.assert_array_equal(g, e)
 
 
+def test_bank_step_tracks_valid_slots_only(bank, monkeypatch):
+    """Both passes of ``bank_step`` hand the Costas loop the detections'
+    valid flags as its row mask (header at symbol 0, payload at 192): a
+    slot with no detection is not tracked, and its header symbols read
+    zeros."""
+    import gr4_packet_modem_tpu_torch.models.receiver as receiver_module
+
+    _, rx, x, _ = bank
+    calls, track = [], receiver_module.costas_track
+
+    def spy(symbols, phase0, freq0, offset=0, active=None):
+        calls.append((offset, active))
+        return track(symbols, phase0, freq0, offset, active)
+
+    monkeypatch.setattr(receiver_module, "costas_track", spy)
+    det, _, res, _ = rx.bank_step(torch.from_numpy(x))
+    assert [offset for offset, _ in calls] == [0, 192]
+    assert not bool(det.valid.all()) and bool(det.valid.any())
+    for _, active in calls:
+        assert active is not None and torch.equal(active, det.valid)
+    assert not bool(res.accepted[~det.valid].any())
+    got = rx.decode(torch.from_numpy(x), rx.acquirer.acquire(torch.from_numpy(x)))
+    blank = ~got.det.valid
+    assert torch.equal(got.header_symbols[blank], torch.zeros_like(got.header_symbols[blank]))
+
+
 def test_decode_seeded_suppression(bank):
     """``Receiver.decode``, the chain every caller runs, against the JAX
     receiver: unseeded, its rows are the JAX ``bank_step``'s; unseeded and

@@ -77,8 +77,10 @@ def test_off_leaves_no_span_and_no_record(vv):
     assert not [n for n in names if n.startswith("span:")]
     # the counters are kept with tracing off: one eager step of two groups,
     # each a one-chunk header and payload extraction over 2 x 8 rows of
-    # 4 (128 + 4) payload symbols
-    counters = {"rx.graph.eager": 1, "rx.extract.chunks": 4, "rx.payload.slot_symbols": 4 * 8 * 528}
+    # 4 (128 + 4) payload symbols, and the header pass's Costas loop over
+    # those rows (the V&V payload carrier runs none)
+    counters = {"rx.graph.eager": 1, "rx.extract.chunks": 4, "rx.payload.slot_symbols": 4 * 8 * 528,
+                "rx.costas.rows": 2 * 2 * 8}
     assert trace.records() == [] and trace.totals() == {"steps": 0, "spans": {}, "counters": counters}
     assert trace.span("rx.step") is trace.span("rx.payload", torch.device("cpu"))  # one shared no-op
 
