@@ -34,13 +34,21 @@ channel, so every group size gives the same result. Groups bound the
 working set; at the bench geometry (64 channels of 553,396 samples) one
 batch fits the card's memory as well.
 
-On a CUDA device ``bank_step`` replays each stage (``acquire``,
-``decode_headers``, ``filter_detections``, ``decode_payloads``) from CUDA
-graphs captured the second time it sees a bank (``utils/graphs.py``;
-acquisition as two, the peak search's and the estimates'): the host then
-issues a launch or two a stage in place of its hundreds, and the outputs
-are bit-identical. The other callers of the stages run them
-eagerly; :meth:`Receiver.graph_counts` says how the steps ran.
+``stream_step(x, busy)`` is the bank step of a continuous stream
+(upstream's stream mode): ``x`` is a sliding bank whose fresh window
+``[front_pad, front_pad + block)`` alone may start a packet, the rest look-back
+and lookahead, and ``busy`` the suppression state carried from the last
+step on the card, handed on in place (:func:`hand_on_busy`, the rule of the
+streaming drivers).
+
+On a CUDA device ``bank_step`` and ``stream_step`` replay each stage
+(``acquire``, ``decode_headers``, ``filter_detections``,
+``decode_payloads``, and the stream step's ``hand_on``) from CUDA graphs
+captured the second time they see a bank (``utils/graphs.py``; acquisition
+as two, the peak search's and the estimates'): the host then issues a
+launch or two a stage in place of its hundreds, and the outputs are
+bit-identical. The other callers of the stages run them eagerly;
+:meth:`Receiver.graph_counts` says how the steps ran.
 """
 
 from __future__ import annotations
@@ -71,10 +79,11 @@ from .tables import receiver_tables, tables_from_numpy
 __all__ = [
     "RxConfig", "Receiver", "HeaderResult", "PayloadResult", "Decoded",
     "packet_extent_samples", "suppress_overlapping", "flatten_detections",
-    "flatten_grouped_results",
+    "flatten_grouped_results", "IDLE_BUSY", "hand_on_busy",
 ]
 
 _HEADER_REGION_SYMS = C.SYNCWORD_LEN + C.HEADER_SYMBOLS  # 192
+IDLE_BUSY = -(1 << 30)  # busy-until of a channel with no packet in flight
 
 
 def packet_extent_samples(
@@ -107,6 +116,13 @@ def suppress_overlapping(
         busy = torch.where(k, index[..., i] + extent[..., i], busy)
         keep.append(k)
     return busy, torch.stack(keep, dim=-1)
+
+
+def hand_on_busy(busy_end: torch.Tensor, block: int) -> torch.Tensor:
+    """The suppression state a sliding buffer carries into its next step:
+    the scan's busy-until moved back by the ``block`` samples the buffer
+    slides, never below :data:`IDLE_BUSY`."""
+    return (busy_end - block).clamp(min=IDLE_BUSY)
 
 
 def flatten_detections(
@@ -249,6 +265,10 @@ class Receiver(nn.Module):
             self.register_buffer(name, value.to(device))
         self.arm_len = self.arm_taps.shape[1]
         self.header_decoder = HeaderLdpcDecoder(config.ldpc_iterations, device=device)
+        # the stream steps' row counts (rows kept with a good header, the
+        # IDLE ones among them), added on the card: a graph adds to it by address
+        self.register_buffer("stream_counts", torch.zeros(2, dtype=torch.int64, device=device),
+                             persistent=False)
         self._derive_tables()
         s_pay = config.max_payload_syms
         ks = keystream_np(C.HEADER_LLRS + 2 * s_pay).astype(bool)
@@ -514,16 +534,79 @@ class Receiver(nn.Module):
         step on the same ``x`` (its address, shape and strides) and
         ``group`` (``utils/graphs.py``); the results are the caller's
         own either way."""
+        return self._step(x, group)
+
+    def stream_step(self, x: torch.Tensor, busy: torch.Tensor):
+        """The bank step of a continuous stream: ``x`` ``[C, front_pad +
+        block + pad_tail()]`` is a sliding buffer whose fresh window
+        ``[front_pad, front_pad + block)`` alone may start a packet (the
+        ``front_pad`` samples before it are look-back, the ``pad_tail()``
+        after it the lookahead that finishes a packet started in it), and
+        ``busy`` int64 ``[C]`` the suppression state carried from the last
+        step (:data:`IDLE_BUSY` where no packet is in flight). After the
+        decode, ``busy`` is overwritten on the card with the state the next
+        step takes, :func:`hand_on_busy` of this step's, for a buffer that
+        slides by ``block`` samples; and the rows kept with a good header,
+        and those of them of type IDLE, are added on the card to the
+        counts :meth:`stream_rows` reads. The channels run as one batch.
+        Returns ``(det_flat, hdr, res, keep)`` as :meth:`bank_step`, graphs
+        as there: a graphed step needs ``busy`` at one address from step to
+        step."""
+        fp = self.front_pad
+        block = x.shape[-1] - fp - self.pad_tail()
+        if block < fp + self.pad_tail():
+            raise ValueError(
+                f"a sliding buffer of {x.shape[-1]} samples holds a block of {block}, less than the "
+                f"{fp + self.pad_tail()} samples it keeps from step to step"
+            )
+        if busy.shape != x.shape[:1] or busy.dtype != torch.int64 or busy.device != x.device:
+            raise ValueError(f"busy must be int64 [{x.shape[0]}] on {x.device}, got {busy.dtype} "
+                             f"{tuple(busy.shape)} on {busy.device}")
+        return self._step(x, 0, busy, block)
+
+    def _step(self, x: torch.Tensor, group: int, busy=None, block: int = 0):
+        """:meth:`bank_step`, or with ``busy`` the one batch of
+        :meth:`stream_step`."""
         c = x.shape[0]
+        carry = () if busy is None else (busy, block)
         next_step()
-        with span("rx.step", x.device), self.step_graphs.step(x, group) as graphed:
+        with span("rx.step", x.device), self.step_graphs.step(x, group, *carry) as graphed:
             if not (0 < group < c and c % group == 0):
-                out = self.decode_bank(x, self.acquirer.acquire(x))
+                if busy is None:
+                    out = self.decode_bank(x, self.acquirer.acquire(x))
+                else:
+                    fp = self.front_pad
+                    d = self.decode(x, self.acquirer.acquire(x, fresh_lo=fp, fresh_hi=fp + block), busy)
+                    self.hand_on(d.busy_end, d.hdr.header_ok, d.hdr.packet_type, d.keep, busy, block)
+                    out = d.det, d.hdr, d.res, d.keep
                 # a graphed step's outputs are its graphs' own: copy them out
                 return owned(out) if graphed else out
             return flatten_grouped_results([  # concatenates: new tensors
                 self.decode_bank(g, self.acquirer.acquire(g)) for g in x.split(group)
             ])
+
+    @stage
+    def hand_on(
+        self, busy_end: torch.Tensor, header_ok: torch.Tensor, packet_type: torch.Tensor,
+        keep: torch.Tensor, busy: torch.Tensor, block: int,
+    ) -> None:
+        """The stream step's last stage, on the card: ``busy`` overwritten
+        with :func:`hand_on_busy` of the scan's ``busy_end``, and the rows
+        kept with a good header, and those of type IDLE among them, added
+        to the buffer ``stream_counts``."""
+        with span("rx.hand_on", busy.device):
+            busy.copy_(hand_on_busy(busy_end, block))
+            good = keep & header_ok
+            idle = good & (packet_type == int(C.PacketType.IDLE))
+            self.stream_counts.add_(torch.stack([good.sum(), idle.sum()]))
+
+    def stream_rows(self) -> dict[str, int]:
+        """The rows the stream steps kept with a good header
+        (``"header_ok"``) and the IDLE rows among them (``"idle"``), added
+        on the card by every step, a replayed one too (one synchronising
+        read: not for a step's path)."""
+        good, idle = self.stream_counts.tolist()
+        return {"header_ok": good, "idle": idle}
 
     # -------------------------------------------- feed-forward carrier track
 

@@ -22,15 +22,21 @@ link as one batch, each packet at its link's own GLFSR index, and lays
 each link's bursts back to back into a row of the bank.
 
 Stream mode concatenates sync || data of every packet into one symbol
-stream and interpolates it with the FIR history carried across calls. The
-constant tables are buffers (``models/tables.py``).
+stream and interpolates it with the FIR history carried across calls. Its
+bank form (``modulate_stream_bank``) frames the packets of every link as
+one batch, lays each link's packets back to back after the symbols it
+carried over from its last call, puts a fixed number of symbols a link
+through the interpolator with each link's FIR history, and carries the
+rest over. The constant tables are buffers (``models/tables.py``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.crc import crc32_compute, crc_bytes_be
@@ -43,7 +49,7 @@ from ..utils.ragged import PacketBatch, ragged_concat
 from ..utils.trace import count, span
 from .tables import tables_from_numpy, transmitter_tables
 
-__all__ = ["TxConfig", "Transmitter", "make_transmitter"]
+__all__ = ["TxConfig", "Transmitter", "StreamCarry", "make_transmitter"]
 
 
 @dataclass(frozen=True)
@@ -243,6 +249,71 @@ class Transmitter(nn.Module):
         syms, total = self.modulate_stream_symbols(packets, out_syms)
         carry, samples = stream_interpolating_fir(carry, syms, self.taps, sps)
         return carry, samples, total * sps
+
+    def stream_carry(self, links: int) -> "StreamCarry":
+        """The state of ``links`` stream-mode links before their first
+        symbol: no backlog, zero FIR history."""
+        dev = self.taps.device
+        return StreamCarry(torch.zeros(links, self.max_stream_syms, dtype=torch.complex64, device=dev),
+                           torch.zeros(links, dtype=torch.int64, device=dev),
+                           torch.zeros(links, self.arm_len - 1, dtype=torch.complex64, device=dev))
+
+    def modulate_stream_bank(
+        self,
+        data: torch.Tensor,
+        lengths: torch.Tensor,
+        types: torch.Tensor,
+        carry: "StreamCarry",
+        out_syms: int,
+    ) -> tuple[torch.Tensor, "StreamCarry"]:
+        """Stream-mode TX of a bank of C links for one call:
+        ``data`` uint8 ``[C, K, max_payload_len]``, ``lengths`` ``[C, K]``
+        (0: no packet in that slot) and ``types`` ``[C, K]``
+        (``PacketType``), framed as one batch of C*K packets, each sync ||
+        data; each link's packets laid back to back after its carried
+        backlog; ``out_syms`` symbols a link put through the RRC
+        interpolator with its carried FIR history. Returns the samples
+        complex64 ``[C, out_syms * sps]`` and the carry for the next call
+        (:class:`StreamCarry`): the symbols past ``out_syms``, at most one
+        packet's worth (``max_stream_syms``; a link handed more than that
+        beyond ``out_syms`` loses the rest), and the history. A link
+        handed fewer symbols than ``out_syms`` sends zeros after them.
+        Spans ``tx.step`` (``.frame``, ``.layout``: the packets after
+        the backlog, ``.shape``: the FIR); counter ``tx.samples`` (C *
+        out_syms * sps) a call."""
+        c, k, width = data.shape
+        dev, w = data.device, self.max_stream_syms
+        with span("tx.step", dev):
+            with span("tx.step.frame"):
+                lens = lengths.reshape(-1)
+                syms, data_end = self._sync_data(
+                    PacketBatch(data.reshape(c * k, width), lens, types.reshape(-1)), w)
+                data_end = torch.where(lens > 0, data_end, 0)
+            with span("tx.step.layout"):
+                n = out_syms + w
+                stream, total = ragged_concat(syms.view(c, k, w), data_end.view(c, k), n, offset=carry.backlog_len)
+                del syms
+                pos = torch.arange(n, device=dev)
+                stream = torch.where(pos < carry.backlog_len[:, None], F.pad(carry.backlog, (0, n - w)), stream)
+                rest = (carry.backlog_len + total - out_syms).clamp(0, w)
+            with span("tx.step.shape"):
+                history, samples = stream_interpolating_fir(
+                    carry.history, stream[:, :out_syms], self.taps, self.config.samples_per_symbol)
+        count("tx.samples", samples.numel())
+        return samples, StreamCarry(stream[:, out_syms:].contiguous(), rest, history)
+
+
+class StreamCarry(NamedTuple):
+    """What a bank of stream-mode links carries from one call of
+    :meth:`Transmitter.modulate_stream_bank` to the next: each link's
+    ``backlog`` symbols complex64 ``[C, max_stream_syms]`` (the rest of a
+    packet cut at the last call's end), their count ``backlog_len`` int64
+    ``[C]``, and the FIR ``history`` complex64 ``[C, arm_len - 1]`` (the
+    last symbols interpolated)."""
+
+    backlog: torch.Tensor
+    backlog_len: torch.Tensor
+    history: torch.Tensor
 
 
 def make_transmitter(

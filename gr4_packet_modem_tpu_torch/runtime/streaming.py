@@ -52,7 +52,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..models.receiver import Receiver, RxConfig
+from ..models.receiver import IDLE_BUSY, Receiver, RxConfig, hand_on_busy
 from ..models.transmitter import Transmitter
 from ..ops.fir import stream_interpolating_fir
 from ..utils import constants as C
@@ -66,7 +66,6 @@ __all__ = [
 ]
 
 _WIRE_META_FIELDS = 9
-_IDLE_BUSY = -(1 << 30)  # busy-until of a channel with no packet in flight
 
 
 @dataclass
@@ -248,7 +247,7 @@ class StreamingBank:
         # absolute stream index of buffer position 0; the first real sample
         # lands at buffer position fp + pt after the first block
         self._abs_offset = -(fp + pt + block)
-        self._busy = torch.full((c,), _IDLE_BUSY, dtype=torch.int64, device=dev)
+        self._busy = torch.full((c,), IDLE_BUSY, dtype=torch.int64, device=dev)
         self._fill = 0  # samples of the next block already staged
         self._carry = np.zeros((self.channels, 0), np.complex64)  # int4: an unpaired sample
         self.overflow_blocks = 0  # blocks whose acquisition saturated
@@ -346,7 +345,7 @@ class StreamingBank:
         merged = [torch.stack(o) if o[0].ndim == 0 else torch.cat(o) for o in zip(*outs)]
         idx, lens, types, esn0, freq, arm, acc, data, ovf, busy_end = merged[:10]
         # busy state pre-shifted into the next block's coordinates
-        self._busy = (busy_end - b).clamp(min=_IDLE_BUSY)
+        self._busy = hand_on_busy(busy_end, b)
         chan = self.rx.channel_ids(c, self.rx.config.max_detections, idx.device)
         packed = pack_result_wire(
             idx, lens, types, esn0, freq, arm, chan, acc, data, ovf.any(),

@@ -115,7 +115,7 @@ class _Chain:
 
 class StepGraphs:
     """The captured stages of a step, per key, for one object's steps (a
-    ``Receiver``'s ``bank_step``), at most :data:`CAPACITY` chains.
+    ``Receiver``'s ``bank_step`` and ``stream_step``), at most :data:`CAPACITY` chains.
 
     Every graph on a device draws on one memory pool. That is safe because
     a step replays its chain to the end, and its caller copies the results

@@ -2,9 +2,11 @@
 
 Tracing is off by default. :func:`span` is a context manager placed where
 the work happens: the receiver's stages (``rx.*``), the staging and
-dispatch of ``StreamingBank`` (``stream.*``), the bank form of the
-transmitter (``tx.step``, with ``.frame``, ``.shape`` and ``.layout``) and
-the transceiver bank's channel (``channel.impair``). While tracing is off it
+dispatch of ``StreamingBank`` (``stream.*``), the bank forms of the
+transmitter (``tx.step``, with ``.frame``, ``.shape`` and ``.layout``), the
+transceiver bank's channel (``channel.impair``) and, in stream mode, its
+slide of the receiver's bank (``rx.slide``) and the stream step's last
+stage (``rx.hand_on``). While tracing is off it
 returns one shared object that does nothing: no allocation, no profiler
 annotation, no CUDA event, no clock read. While it is on, a span
 
@@ -53,8 +55,12 @@ handed to the Costas loop, ``ops/costas_cuda.py::costas_track``, on
 either route: 2 x D a Costas bank step, D with the V&V carrier) and
 ``rx.payload.slot_symbols``
 (rows times symbols the payload pass decoded); the transmitter's bank
-form counts ``tx.packets`` (the packets it framed) and ``tx.samples`` (the
-bank samples it wrote), once a call. A step replayed from
+forms count ``tx.samples`` (the bank samples they wrote) and the burst form
+``tx.packets`` (the packets it framed), once a call; in stream mode the
+transceiver bank counts ``tx.packets`` and ``tx.idle_packets`` (the packets,
+and the IDLE packets among them, handed to a step, from the host's lengths
+and types). The stream step's count of its decoded rows, and of the IDLE
+ones among them, is added on the card (``Receiver.stream_rows``). A step replayed from
 CUDA graphs adds what the eager step adds. :func:`counters` reads them,
 and :func:`totals` returns them under ``"counters"``.
 """

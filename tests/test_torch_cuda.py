@@ -7,6 +7,8 @@ where JAX is not installed:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -1189,3 +1191,77 @@ def test_transceiver_bank_step(dev):
                 start = fp + int(offset[c]) + k * burst_len
                 near = [v for (ch, i), v in got.items() if ch == c and abs(i - start) <= 24]
                 assert len(near) == 1 and np.array_equal(near[0], data[c, k, :n]), (s, c, k)
+
+
+def test_transceiver_stream_graphed_equals_eager(dev):
+    """The transceiver bank in stream mode on the card (``models/
+    transceiver.py``: ``stream_step``): four links of a 2**17-sample block,
+    back-to-back 1500-byte user packets and 256-byte IDLE packets, the
+    Costas carrier, inputs staged from pinned host memory. Two banks with
+    the same seeds take the same six steps, one with its receive stages
+    from CUDA graphs (eager, captured, then replayed: the bank and the
+    suppression state keep their addresses), the other eager throughout:
+    every step's rows, packets, received bank and handed-on state are
+    equal, as are the stream row counts the graphed steps added on the
+    card; every user packet whose syncword lies in a fresh window is
+    delivered once, and no IDLE packet."""
+    from gr4_packet_modem_tpu_torch.models.receiver import RxConfig
+    from gr4_packet_modem_tpu_torch.models.transceiver import TransceiverBank
+    from gr4_packet_modem_tpu_torch.models.transmitter import TxConfig
+    from gr4_packet_modem_tpu_torch.utils import constants as C
+
+    links, block, slots, sps = 4, 1 << 17, 16, 4
+    syms, idle = block // sps, int(C.PacketType.IDLE)
+    rx = RxConfig(max_payload_len=1536, max_detections=slots, freq_bins=4, acquisition_backend="fused",
+                  acquisition_fft_size=2048, payload_carrier="costas")
+    rng = np.random.default_rng(41)
+    packets = []  # per link: (start symbol, payload, type)
+    for _ in range(links):
+        row, pos, seq = [], 0, 0
+        while pos < 7 * syms:
+            for t in rng.permutation([0] * 9 + [idle] * 7):
+                p = (((np.arange(256) + seq) % 255).astype(np.uint8) if t == idle
+                     else rng.integers(0, 256, 1500, dtype=np.uint8))
+                seq += t == idle
+                row.append((pos, p, int(t)))
+                pos += C.stream_symbols(p.size)
+        packets.append(row)
+    cfo, phase = torch.from_numpy(rng.uniform(-0.006, 0.006, links)), torch.from_numpy(rng.uniform(-np.pi, np.pi, links))
+    banks = []
+    for graphed in (True, False):
+        loop = TransceiverBank(TxConfig(max_payload_len=1536, stream_mode=True), rx, links, slots, block, dev,
+                               generator=torch.Generator(device=dev).manual_seed(13))
+        loop.tune(cfo, phase)
+        if not graphed:
+            loop.rx.step_graphs.engages = lambda x: False
+        banks.append(loop)
+    d, keep = rx.max_detections, banks[0].bank.shape[1] - block
+    delivered = set()
+    for i in range(6):
+        data = np.zeros((links, slots, 1536), np.uint8)
+        lengths, types = np.zeros((links, slots), np.int64), np.zeros((links, slots), np.int64)
+        for c, row in enumerate(packets):
+            for k, (_, p, t) in enumerate(x for x in row if i * syms <= x[0] < (i + 1) * syms):
+                data[c, k, : p.size], lengths[c, k], types[c, k] = p, p.size, t
+        inputs = [torch.from_numpy(a).pin_memory() for a in (data, lengths, types)]
+        (g_out, g_host), (e_out, e_host) = (loop.stream_step(*inputs) for loop in banks)
+        torch.cuda.synchronize()
+        kind = ("eager", "captured", "replayed", "replayed", "replayed", "replayed")[i]
+        assert banks[0].rx.graph_counts()[kind] == max(1, i - 1), (i, banks[0].rx.graph_counts())
+        assert banks[1].rx.graph_counts()["eager"] == i + 1
+        assert torch.equal(banks[0].bank, banks[1].bank) and torch.equal(banks[0].busy, banks[1].busy), i
+        for a, b in zip(g_out, e_out):
+            for f in dataclasses.fields(a) if dataclasses.is_dataclass(a) else [None]:
+                x, y = (a, b) if f is None else (getattr(a, f.name), getattr(b, f.name))
+                assert torch.equal(x, y), (i, f)
+        for f in dataclasses.fields(g_host):
+            assert torch.equal(getattr(g_host, f.name), getattr(e_host, f.name)), (i, f.name)
+        for j in range(g_host.row.numel()):
+            n = int(g_host.length[j])
+            delivered.add((int(g_host.row[j]) // d, i * block + int(g_host.index[j]) - keep,
+                           g_host.data[j, :n].numpy().tobytes()))
+    assert banks[0].rx.stream_rows() == banks[1].rx.stream_rows()
+    assert banks[0].rx.stream_rows()["idle"] > 0
+    want = {(c, sps * s, p.tobytes()) for c, row in enumerate(packets) for s, p, t in row
+            if t != idle and sps * s < 6 * block - banks[0].rx.pad_tail()}
+    assert delivered == want
